@@ -1,0 +1,66 @@
+"""FAISS-style string factory (the port of ``repro/index/factory.py``).
+
+    index = index_factory("UNQ8x256,Rerank500", dim=96)   # on "cuda"
+
+The port's grammar so far is the flat UNQ index:
+
+  UNQ{M}[x{K}]   neural quantizer (the paper); M codebooks, K codewords
+                 (default 256)
+  Rerank{L}      stage-2 exact-reconstruction budget (d1); UNQ keeps its
+                 paper default L=500 without it
+
+Every other component of the reference's grammar raises, naming the
+ROADMAP slice that brings it.
+"""
+from __future__ import annotations
+
+import re
+
+from repro_torch.index.base import Index
+from repro_torch.index.unq_index import UNQIndex
+
+_QUANT_RE = re.compile(r"^(UNQ|PQ|OPQ|RVQ)(\d+)(?:x(\d+))?$")
+_RERANK_RE = re.compile(r"^Rerank(\d+)$")
+
+#: reference components not ported yet -> (pattern, the slice bringing it)
+_NOT_PORTED = (
+    (re.compile(r"^(PQ|OPQ|RVQ)\d+(?:x\d+)?$"),
+     "the PQ/OPQ/RVQ baselines (ROADMAP A5)"),
+    (re.compile(r"^(IVF\d+|NProbe\d+|Residual)$"), "IVF (ROADMAP A7)"),
+    (re.compile(r"^Scan\(\w+\)$"),
+     "pinning a scan backend by name (the port's backend follows "
+     "device=; the tuner's backends come with ROADMAP A10)"),
+)
+
+
+def index_factory(spec: str, dim: int, *, device="cuda") -> Index:
+    """Build an untrained Index on ``device`` from a factory string."""
+    quant = None
+    rerank = None
+    for comp in spec.split(","):
+        comp = comp.strip()
+        if not comp:
+            continue
+        for pattern, slice_name in _NOT_PORTED:
+            if pattern.match(comp):
+                raise NotImplementedError(
+                    f"component {comp!r} of {spec!r} is not ported yet: "
+                    f"{slice_name}")
+        m = _QUANT_RE.match(comp)
+        if m:
+            if quant is not None:
+                raise ValueError(f"multiple quantizers in {spec!r}")
+            quant = (int(m.group(2)), int(m.group(3) or 256))
+            continue
+        m = _RERANK_RE.match(comp)
+        if m:
+            rerank = int(m.group(1))
+            continue
+        raise ValueError(f"cannot parse component {comp!r} of factory string "
+                         f"{spec!r} (expected UNQ8x256 / Rerank500)")
+    if quant is None:
+        raise ValueError(f"no quantizer component in factory string {spec!r}")
+    kw = {"device": device}
+    if rerank is not None:
+        kw["rerank"] = rerank
+    return UNQIndex(dim, num_codebooks=quant[0], codebook_size=quant[1], **kw)

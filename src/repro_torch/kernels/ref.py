@@ -1,0 +1,61 @@
+"""Torch oracles for the kernels of the flat UNQ path.
+
+The port's counterparts of ``repro/kernels/ref.py``: the ground truth the
+CUDA kernels and the plain streaming versions are held to. Sums over the
+M codebooks are an explicit left-to-right chain, as in the reference, so
+comparisons are bit-exact rather than association-dependent.
+
+Tie order is ``lax.top_k``'s: among equal scores the lower index wins.
+``torch.topk`` promises no tie order, so the oracles take a stable sort.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def adc_scan_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """codes (N, M) integer, lut (M, K) -> scores (N,) with
+    ``scores[n] = lut[0, codes[n, 0]] + lut[1, codes[n, 1]] + ...``,
+    accumulated left to right over m."""
+    m_idx = torch.arange(lut.shape[0], device=lut.device)[None, :]
+    gathered = lut[m_idx, codes.long()]                  # (N, M)
+    acc = gathered[:, 0]
+    for m in range(1, lut.shape[0]):
+        acc = acc + gathered[:, m]
+    return acc
+
+
+def adc_scan_batch_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Multi-query scan: codes (N, M), luts (Q, M, K) -> (Q, N); each row
+    bit-identical to ``adc_scan_ref`` with that query's table (the same
+    per-element chain, with no (Q, N, M) intermediate)."""
+    c = codes.long()
+    acc = luts[:, 0, :].index_select(1, c[:, 0])
+    for m in range(1, luts.shape[1]):
+        acc = acc + luts[:, m, :].index_select(1, c[:, m])
+    return acc
+
+
+def adc_scan_topl_ref(codes: torch.Tensor, luts: torch.Tensor,
+                      bias: torch.Tensor | None, topl: int,
+                      qbias: torch.Tensor | None = None):
+    """Materialized oracle for the streaming scan + top-L: the full (Q, N)
+    score matrix (``+ bias`` then ``+ qbias``), then a stable ascending
+    sort. Returns ((Q, L) f32, (Q, L) int32), L = min(topl, N), sorted by
+    (score asc, index asc)."""
+    scores = adc_scan_batch_ref(codes, luts)
+    if bias is not None:
+        scores = scores + bias[None, :]
+    if qbias is not None:
+        scores = scores + qbias
+    keep = min(topl, codes.shape[0])
+    s, idx = torch.sort(scores, dim=1, stable=True)
+    return s[:, :keep], idx[:, :keep].to(torch.int32)
+
+
+def unq_encode_ref(heads: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Codeword assignment (paper Eq. 4): heads (B, M, d_c), codebooks
+    (M, K, d_c) -> codes (B, M) int32, argmax_k <heads[b, m], c[m, k]>
+    with the first maximum winning."""
+    scores = torch.einsum("bmd,mkd->bmk", heads, codebooks)
+    return torch.argmax(scores, dim=-1).to(torch.int32)

@@ -1,0 +1,151 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs an NVIDIA Hopper card and skips without one;
+the module imports neither JAX nor the reference package, so it runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+(``--noconftest`` because ``tests/conftest.py`` imports JAX.)
+
+``adc_scan_topl`` must equal the plain stream bit for bit in (score, id),
+ties and filtered (+inf) entries included. ``unq_encode`` sums its dot
+products in another order than the plain einsum, so codes must be equal
+wherever the top-2 score gap exceeds 1e-5 of the row's largest |score|.
+"""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.unq_paper import SMOKE
+from repro_torch.core import unq
+from repro_torch.data import descriptors
+from repro_torch.index import UNQIndex
+from repro_torch.kernels import ops, topl_scan, unq_encode
+
+ENCODE_GAP_RTOL = 1e-5
+TOL = {"rtol": 1e-5, "atol": 1e-5}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels are built for sm_90a)")
+    return torch.device("cuda")
+
+
+def _decided(heads, books):
+    """(B, M) True where the top-2 scores are apart by more than
+    rounding (float64 scores)."""
+    s = torch.einsum("bmd,mkd->bmk", heads.double(), books.double())
+    top2 = torch.topk(s, 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > \
+        ENCODE_GAP_RTOL * s.abs().amax(dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,L,tie_heavy,filtered,slices", [
+    (100_003, 8, 500, False, False, None),
+    (100_003, 8, 500, True, False, None),
+    (100_003, 8, 500, True, False, 1),     # one slice: no cross-slice merge
+    (20_011, 8, 100, True, True, 13),
+    (20_011, 16, 1000, False, True, None),  # DEEP_16B width, widest heap
+    (300, 8, 300, False, True, None),      # L == N
+    (5, 8, 1, True, False, None)])
+def test_adc_scan_topl_cuda_matches_plain(cuda_device, n, m, L, tie_heavy,
+                                          filtered, slices):
+    q = 13
+    rng = np.random.default_rng(n + L)
+    codes = torch.as_tensor(rng.integers(0, 256, (n, m)).astype(np.uint8))
+    luts = rng.integers(-2, 3, (q, m, 256)) if tie_heavy else \
+        rng.normal(size=(q, m, 256))
+    luts = torch.as_tensor(luts.astype(np.float32))
+    bias = torch.as_tensor(rng.integers(-1, 2, (n,)).astype(np.float32))
+    qbias = torch.as_tensor(np.where(rng.random((q, n)) < 0.9, 0.0, np.inf)
+                            .astype(np.float32)) if filtered else None
+    want = ops.adc_scan_topl(codes, luts, topl=L, bias=bias, qbias=qbias)
+    dev = [t.to(cuda_device) if t is not None else None
+           for t in (codes, luts, bias, qbias)]
+    padded = torch.cat([dev[1], dev[1].new_zeros((16 - q, m, 256))])
+    got = topl_scan.adc_scan_topl_cuda(dev[0], padded, dev[2], dev[3],
+                                       topl=L, num_queries=q, slices=slices)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,d", [(8192, 8, 256, 256), (256, 16, 256, 256),
+                                     (100, 4, 64, 32), (64, 3, 70, 18)])
+def test_unq_encode_cuda_matches_plain(cuda_device, b, m, k, d):
+    rng = np.random.default_rng(b)
+    heads = torch.as_tensor(rng.normal(size=(b, m, d)).astype(np.float32))
+    books = torch.as_tensor(rng.normal(size=(m, k, d)).astype(np.float32))
+    want = ops.unq_encode(heads, books)
+    got = ops.unq_encode(heads.to(cuda_device), books.to(cuda_device)).cpu()
+    torch.cuda.synchronize()
+    decided = _decided(heads, books)
+    assert decided.float().mean() > 0.99
+    assert torch.equal(got[decided], want[decided])
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    heads = torch.zeros((64, 2, 8), device=cuda_device)
+    books = torch.zeros((2, 16, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of"):
+        unq_encode.unq_encode_cuda(heads[:10], books)
+    with pytest.raises(ValueError, match="contiguous"):
+        unq_encode.unq_encode_cuda(heads, books.transpose(1, 2)
+                                   .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        unq_encode.unq_encode_cuda(heads, books.cpu())
+    codes = torch.zeros((100, 2), dtype=torch.uint8, device=cuda_device)
+    luts = torch.zeros((8, 2, 16), device=cuda_device)
+    bias = torch.zeros((100,), device=cuda_device)
+    with pytest.raises(ValueError, match="topl"):
+        topl_scan.adc_scan_topl_cuda(codes, luts, bias, topl=101,
+                                     num_queries=8)
+    with pytest.raises(ValueError, match="float32"):
+        topl_scan.adc_scan_topl_cuda(codes, luts.double(), bias, topl=5,
+                                     num_queries=8)
+
+
+@pytest.mark.cuda
+def test_main_path_on_the_card_matches_cpu(cuda_device):
+    """The flat index on the card (both kernels) against the same index
+    on the CPU (the plain versions) at a small size."""
+    cfg = SMOKE
+    ds = descriptors.make_synthetic_dataset(
+        "deep", dim=cfg.dim, n_train=500, n_base=5000, n_query=32,
+        n_centers=32, seed=1, compute_gt=False)
+    params, state = unq.numpy_params(cfg, 0, bn_stats=True, center=ds.train)
+    model = unq.unq_from_jax(params, state, cfg)
+    cpu = UNQIndex.from_trained(model, rerank=64, device="cpu").add(ds.base)
+    launches = (unq_encode.unq_encode_cuda.launches,
+                topl_scan.adc_scan_topl_cuda.launches)
+    gpu = UNQIndex.from_trained(copy.deepcopy(model), rerank=64,
+                                device=cuda_device).add(ds.base)
+    with torch.no_grad():
+        heads = model.encode_heads(torch.as_tensor(ds.base))
+    decided = _decided(heads, model.codebooks)
+    assert torch.equal(gpu.codes.cpu()[decided], cpu.codes[decided])
+    gpu = UNQIndex.from_trained(copy.deepcopy(model), codes=cpu.codes,
+                                rerank=64, device=cuda_device)
+    rng = np.random.default_rng(0)
+    for mask in (None, rng.random(5000) < 0.5, rng.random((32, 5000)) < 0.01):
+        want = cpu.search(ds.queries, 10, filter_mask=mask)
+        got = [x.cpu() for x in gpu.search(ds.queries, 10, filter_mask=mask)]
+        assert torch.equal(torch.isinf(got[0]), torch.isinf(want[0]))
+        fin = torch.isfinite(want[0])
+        np.testing.assert_allclose(got[0][fin].numpy(), want[0][fin].numpy(),
+                                   **TOL)
+        apart = torch.ones_like(fin)      # ids agree away from near-ties
+        gap = (want[0][:, 1:] - want[0][:, :-1]).abs() > 1e-4
+        apart[:, 1:] &= gap
+        apart[:, :-1] &= gap
+        assert torch.equal(got[1][apart & fin], want[1][apart & fin])
+        assert torch.equal(got[1][~fin], want[1][~fin])
+    assert unq_encode.unq_encode_cuda.launches > launches[0]
+    assert topl_scan.adc_scan_topl_cuda.launches > launches[1]
