@@ -7,25 +7,39 @@ Phases, each printed as it runs; any failure exits nonzero:
 
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, the TF32 flags (both must be False);
-  2. build: every CUDA kernel of the path, from ``src/repro_torch/kernels/
-     csrc``, with nvcc's register report;
+  2. build: every CUDA kernel, from ``src/repro_torch/kernels/csrc``,
+     with nvcc's register report;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: ``unq_encode`` at B=8192 on DEEP_8B (codes equal
+     main paths' shapes: ``unq_encode`` at B=8192 on DEEP_8B (codes equal
      outside near-ties), ``adc_scan_topl`` at N=1,000,000, M=8, K=256,
      L=500 on real LUTs, on tie-heavy integer LUTs, and with a (Q, N)
-     filter at an N that is no multiple of the tile (bit-identical);
-  4. the main path: ``index_factory("UNQ8x256,Rerank500", dim=96)`` ->
+     filter at an N that is no multiple of the tile (bit-identical),
+     ``rerank_gather_dist`` at Q=1000, L=500, M=8, K=256, D=96 on a
+     real OPQ table (within RERANK_TOL) and on an integer-valued table
+     (bit-identical);
+  4. the UNQ path: ``index_factory("UNQ8x256,Rerank500", dim=96)`` ->
      ``UNQIndex.from_trained`` on DEEP_8B weights drawn from a numpy seed
      -> ``add`` of 1,000,000 synthetic Deep1M-like descriptors in batches
      of several ENCODE_BUCKETS sizes -> ``search`` of 1,000 queries at
      k=100, with phase times, peak memory, each kernel's launch count
-     (both must be > 0), a save/load round trip (identical results), and
-     checks of the output against the plain versions;
-  5. one JSON line of per-kernel times (CUDA events) beside their bounds;
-  6. the last line: {"ok": true, "device": {...}}.
+     (``unq_encode`` in add and ``adc_scan_topl`` in search must be
+     > 0), a save/load round trip (identical results), and checks of the
+     output against the plain versions;
+  5. the OPQ path: ``index_factory("OPQ8x256,Rerank500", dim=96)`` ->
+     ``train`` on 100,000 vectors with the reference's default iteration
+     counts -> ``add`` of the same 1,000,000 descriptors -> ``search``
+     of the same 1,000 queries at k=100, with phase times, peak memory,
+     R@1/R@10/R@100 against the exact neighbours, launch counts per
+     phase (``adc_scan_topl`` and ``rerank_gather_dist`` must be > 0 in
+     search), a save/load round trip, stage 2 and the final ids against
+     the plain stage 2, and a filtered search that underfills the pool;
+  6. one JSON line of per-kernel times (CUDA events) beside their bounds;
+  7. the last line: {"ok": true, "device": {...}}.
 
 Without a card, or run outside the repository, it exits nonzero before
-printing a result. It writes only under ``build/`` in the checkout.
+printing a result. In the checkout it writes the kernel libraries under
+``src/repro_torch/kernels/_build/`` and, for the round trips, saved
+indexes under ``build/``, which it removes again.
 """
 from __future__ import annotations
 
@@ -39,8 +53,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# the main path's sizes: Deep1M's base set, 1,000 queries, k=100
+# the main paths' sizes: Deep1M's base set, 1,000 queries, k=100; the
+# OPQ path trains on N_TRAIN vectors, a fifth of the paper's 500,000
 N_BASE, N_QUERY, K = 1_000_000, 1_000, 100
+N_TRAIN, PAPER_N_TRAIN = 100_000, 500_000
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
 # tensor cores, counting an FMA as two operations; a lone f32 add runs at
 # half that (132 SMs x 128 lanes x 1.98 GHz); HBM3 bandwidth
@@ -50,6 +66,9 @@ FP32_ADDS = FP32_FLOPS / 2
 SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 ENCODE_GAP_RTOL = 1e-5
+# d1 of the rerank kernel against the plain version on real tables: the
+# sum over D runs in another order (96 f32 terms, values ~1)
+RERANK_TOL = {"rtol": 1e-5, "atol": 1e-5}
 
 
 def log(*args):
@@ -148,6 +167,59 @@ def scan_parity(torch, topl_scan, ops_mod, codes, luts, bias, qbias, topl,
     return err
 
 
+def rerank_parity(torch, ops_mod, rerank_dist, cand, queries, table, name,
+                  exact):
+    """Kernel vs plain ``rerank_gather_dist``: bit-identical if ``exact``,
+    else within RERANK_TOL. Returns (max_abs_err, max_rel_err)."""
+    got = ops_mod.rerank_gather_dist(cand, queries, table)
+    want = rerank_dist.rerank_gather_dist_chunked(cand, queries, table)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    rel = float((diff / want.abs().clamp_min(1e-30)).max())
+    same = torch.equal(got, want)
+    log(f"  rerank_gather_dist [{name}]: Q={cand.shape[0]} L={cand.shape[1]} "
+        f"M={cand.shape[2]} K={table.shape[1]} D={table.shape[2]}: "
+        f"bit-identical={same} max_abs_err={err} max_rel_err={rel}")
+    ok = same if exact else torch.allclose(got, want, **RERANK_TOL)
+    if not ok:
+        raise AssertionError(f"rerank_gather_dist [{name}] differs from the "
+                             "plain version")
+    return err, rel
+
+
+def recall_at(ids, gt, k: int) -> float:
+    """Share of queries whose exact nearest neighbour is in the first k."""
+    return float((ids[:, :k] == gt[:, None]).any(dim=1).float().mean())
+
+
+def near_tie_free(torch, d, tol=RERANK_TOL):
+    """(Q, k) True where d[q, j] is apart from both neighbours in its row
+    by more than the tolerance (where ids must agree exactly)."""
+    gap = (d[:, 1:] - d[:, :-1]).abs() > \
+        tol["atol"] + tol["rtol"] * d[:, 1:].abs()
+    apart = torch.ones_like(d, dtype=torch.bool)
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    return apart
+
+
+def round_trip(torch, index_cls, index, queries, k, D, I):
+    """Save ``index`` under build/, load it back, and require the same
+    search results."""
+    save_dir = ROOT / "build" / f"chip_smoke_{index.kind}"
+    if save_dir.exists():
+        shutil.rmtree(save_dir)
+    index.save(save_dir)
+    loaded = index_cls.load(save_dir)
+    D2, I2 = loaded.search(queries, k)
+    same = torch.equal(D2, D) and torch.equal(I2, I)
+    shutil.rmtree(save_dir)
+    log(f"  save/load round trip ({index.kind}): results identical={same}")
+    if not same:
+        raise AssertionError("save/load changed the search results")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -163,9 +235,10 @@ def main() -> int:
     from repro_torch.configs.unq_paper import DEEP_8B
     from repro_torch.core import unq
     from repro_torch.data import descriptors
-    from repro_torch.index import (Index, UNQIndex, candidate_generator_for,
-                                   index_factory)
-    from repro_torch.kernels import build, ops, topl_scan, unq_encode
+    from repro_torch.index import (Index, OPQIndex, UNQIndex,
+                                   candidate_generator_for, index_factory)
+    from repro_torch.kernels import (build, ops, rerank_dist, topl_scan,
+                                     unq_encode)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -200,12 +273,16 @@ def main() -> int:
     cfg = DEEP_8B
     t0 = time.perf_counter()
     ds = descriptors.make_synthetic_dataset(
-        "deep", n_train=10_000, n_base=N_BASE, n_query=N_QUERY,
+        "deep", n_train=N_TRAIN, n_base=N_BASE, n_query=N_QUERY,
         seed=args.seed, compute_gt=False)
     params, state = unq.numpy_params(cfg, args.seed, bn_stats=True,
-                                     center=ds.train)
+                                     center=ds.train[:10_000])
     model = unq.unq_from_jax(params, state, cfg)
-    log(f"set-up: {N_BASE} x {cfg.dim} base, {N_QUERY} queries, "
+    gt = torch.as_tensor(descriptors.exact_knn(ds.queries, ds.base, k=1,
+                                               device="cuda")[:, 0])
+    log(f"set-up: {N_TRAIN} x {cfg.dim} training vectors (the paper's "
+        f"learning set is {PAPER_N_TRAIN}: cut {PAPER_N_TRAIN // N_TRAIN}x), "
+        f"{N_BASE} base, {N_QUERY} queries with exact nearest neighbours, "
         f"DEEP_8B weights from seed {args.seed} in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -252,8 +329,28 @@ def main() -> int:
         rbias, qbias, 500, "filter qbias, ragged N", need_inf=True))
     del codes_rand, qbias, keep
 
-    # -- 4. the main path --------------------------------------------------------------
-    log("== 4. main path: index_factory -> from_trained -> add -> search")
+    # stage 2 of the table quantizers, on a briefly trained OPQ table
+    # (dense: the rotation is folded in) and on an integer-valued one
+    t0 = time.perf_counter()
+    quick = index_factory("OPQ8x256", dim=cfg.dim).train(
+        ds.train[:20_000], outer_iters=2, kmeans_iters=5)
+    log(f"  (an OPQ table from 2 + 1 rounds of k-means on 20,000 vectors "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    cand_rand = torch.randint(0, 256, (N_QUERY, 500, 8), dtype=torch.uint8,
+                              device=dev, generator=gen)
+    rr_err, _ = rerank_parity(torch, ops, rerank_dist, cand_rand,
+                              queries_dev, quick._decode_table(),
+                              "real OPQ table", exact=False)
+    int_table = torch.randint(-3, 4, (8, 256, cfg.dim), device=dev,
+                              generator=gen).float()
+    int_queries = torch.randint(-4, 5, (N_QUERY, cfg.dim), device=dev,
+                                generator=gen).float()
+    rerank_parity(torch, ops, rerank_dist, cand_rand, int_queries, int_table,
+                  "integer table", exact=True)
+    del quick, cand_rand, int_table, int_queries
+
+    # -- 4. the UNQ path ---------------------------------------------------------------
+    log("== 4. UNQ path: index_factory -> from_trained -> add -> search")
     spec = "UNQ8x256,Rerank500"
     index = index_factory(spec, dim=cfg.dim)
     if not (isinstance(index, UNQIndex) and index.cfg == cfg):
@@ -268,27 +365,29 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     timer = Timer(torch)
 
-    def counted(name, fn):
+    counters = {"unq_encode": unq_encode.unq_encode_cuda,
+                "adc_scan_topl": topl_scan.adc_scan_topl_cuda,
+                "rerank_gather_dist": rerank_dist.rerank_gather_dist_cuda}
+
+    def counted(timer, name, fn):
         """Run ``fn`` under the timer with every launch count set to 0
         just before it; return its result and the counts just after."""
-        unq_encode.unq_encode_cuda.launches = 0
-        topl_scan.adc_scan_topl_cuda.launches = 0
+        for wrapper in counters.values():
+            wrapper.launches = 0
         out = timer(name, fn)
-        return out, {"unq_encode": unq_encode.unq_encode_cuda.launches,
-                     "adc_scan_topl": topl_scan.adc_scan_topl_cuda.launches}
+        return out, {kern: w.launches for kern, w in counters.items()}
 
-    def add_all():
+    def add_all(index):
         lo = 0
         for b in batches:
             index.add(base_dev[lo:lo + b])
             lo += b
 
-    _, launches_add = counted("encode (add)", add_all)
+    _, launches_add = counted(timer, "encode (add)", lambda: add_all(index))
     k = K
     (D_cold, I_cold), launches_search = counted(
-        "search, first call (cold)", lambda: index.search(queries_dev, k))
-    launches = {name: launches_add[name] + launches_search[name]
-                for name in launches_add}
+        timer, "search, first call (cold)",
+        lambda: index.search(queries_dev, k))
     luts = timer("LUT build", lambda: index._build_luts(queries_dev))
     stage1 = candidate_generator_for(index.device)
     d2, cand = timer("stage 1", lambda: stage1.topl(
@@ -369,20 +468,99 @@ def main() -> int:
         f"equal on {same_codes:.6f} of entries, D max abs diff {small_err}, "
         f"ids equal on all {int(apart.sum())} positions apart from ties")
 
-    save_dir = ROOT / "build" / "chip_smoke_index"
-    if save_dir.exists():
-        shutil.rmtree(save_dir)
-    index.save(save_dir)
-    loaded = Index.load(save_dir)
-    D2, I2 = loaded.search(queries_dev, k)
-    same = torch.equal(D2, D) and torch.equal(I2, I)
-    shutil.rmtree(save_dir)
-    log(f"  save/load round trip: results identical={same}")
-    if not same:
-        raise AssertionError("save/load changed the search results")
+    round_trip(torch, Index, index, queries_dev, k, D, I)
+    del cpu_index, gpu_small
 
-    # -- 5. kernel timings -----------------------------------------------------------------
-    log("== 5. kernels at the main path's shapes (CUDA events)")
+    # -- 5. the OPQ path -----------------------------------------------------------------
+    log("== 5. OPQ path: index_factory -> train -> add -> search")
+    spec = "OPQ8x256,Rerank500"
+    opq = index_factory(spec, dim=cfg.dim)
+    if not (isinstance(opq, OPQIndex) and opq.rerank == 500
+            and (opq.num_books, opq.book_size) == (8, 256)):
+        raise AssertionError(f"{spec} did not build an 8x256 OPQIndex")
+    train_dev = torch.as_tensor(ds.train, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    otimer = Timer(torch)
+    _, o_train = counted(otimer, "train", lambda: opq.train(train_dev))
+    _, o_add = counted(otimer, "encode (add)", lambda: add_all(opq))
+    (oD_cold, oI_cold), o_search = counted(
+        otimer, "search, first call (cold)",
+        lambda: opq.search(queries_dev, k))
+    o_luts = otimer("LUT build", lambda: opq._build_luts(queries_dev))
+    o_d2, o_cand = otimer("stage 1", lambda: stage1.topl(
+        opq.codes, o_luts, None, topl=opq.rerank))
+    oD_st, oI_st = otimer("stage 2", lambda: opq._rerank_topk(
+        queries_dev, o_cand, k))
+    oD, oI = otimer("search total", lambda: opq.search(queries_dev, k))
+    o_peak = torch.cuda.max_memory_allocated()
+    for name, ms in otimer.ms.items():
+        log(f"  {name}: {ms:.3f} ms")
+    o_launches = {"train": o_train, "add": o_add, "search": o_search}
+    log(f"  trained on {train_dev.shape[0]} vectors (outer_iters=8, "
+        f"kmeans_iters=10, final k-means 25); added {opq.ntotal} in "
+        f"{len(batches)} batches; searched {N_QUERY} queries at k={k}, "
+        f"L={opq.rerank}")
+    log(f"  max_memory_allocated: {o_peak} B ({o_peak / 2**30:.2f} GiB)")
+    log(f"  kernel launches per phase: {o_launches}")
+    gt_dev = gt.to(dev)
+    recalls = {f"R@{r}": recall_at(oI, gt_dev, r) for r in (1, 10, 100)}
+    log(f"  recall against the exact nearest neighbour: {recalls}")
+    if o_search["adc_scan_topl"] <= 0 or o_search["rerank_gather_dist"] <= 0:
+        raise AssertionError(f"a kernel was not launched in the OPQ search: "
+                             f"{o_search}")
+
+    if oD.shape != (q, k) or oI.shape != (q, k):
+        raise AssertionError(f"OPQ search returned {oD.shape}, {oI.shape}")
+    if not torch.isfinite(oD).all() or (oD < 0).any() \
+            or (oD[:, 1:] < oD[:, :-1]).any():
+        raise AssertionError("OPQ distances must be finite, >= 0, ascending")
+    if (oI < 0).any() or (oI >= opq.ntotal).any():
+        raise AssertionError("OPQ ids out of range")
+    if not all(torch.equal(a, b) for a, b in
+               ((oD, oD_st), (oI, oI_st), (oD, oD_cold), (oI, oI_cold))):
+        raise AssertionError("OPQ search() differs between calls or from "
+                             "its stages run apart")
+    table = opq._decode_table()
+    o_cand_codes = opq.codes[o_cand.long()]                  # (Q, L, M)
+    sq = 32
+    s2_err, s2_rel = rerank_parity(
+        torch, ops, rerank_dist, o_cand_codes[:sq].contiguous(),
+        queries_dev[:sq].contiguous(), table, f"OPQ path stage 2, {sq} "
+        "queries", exact=False)
+    d1_plain = rerank_dist.rerank_gather_dist_chunked(
+        o_cand_codes, queries_dev, table)
+    pd, order = torch.sort(d1_plain, dim=1, stable=True)
+    pd, pi = pd[:, :k], torch.gather(o_cand, 1, order[:, :k])
+    apart = near_tie_free(torch, pd)
+    if not (torch.allclose(oD, pd, **RERANK_TOL)
+            and torch.equal(oI[apart], pi[apart])):
+        raise AssertionError("the OPQ search differs from the plain stage 2")
+    log(f"  against the plain stage 2 on all {q} queries: D max abs diff "
+        f"{float((oD - pd).abs().max())}, ids equal on all "
+        f"{int(apart.sum())} positions apart from near-ties")
+
+    # a shared filter keeping fewer points than k: the pool underfills,
+    # and its filtered slots must come back as (+inf, -1)
+    n_keep = 60
+    keep = torch.zeros(opq.ntotal, dtype=torch.bool, device=dev)
+    keep[torch.randperm(opq.ntotal, device=dev, generator=gen)[:n_keep]] = \
+        True
+    rerank_dist.rerank_gather_dist_cuda.launches = 0
+    fD, fI = opq.search(queries_dev, k, filter_mask=keep)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(fD)
+    if not ((fin.sum(dim=1) == n_keep).all() and (fI[~fin] == -1).all()
+            and keep[fI[fin].long()].all()
+            and rerank_dist.rerank_gather_dist_cuda.launches == 1):
+        raise AssertionError("the filtered OPQ search did not report its "
+                             "underfilled pool as (+inf, -1)")
+    log(f"  filtered search keeping {n_keep} of {opq.ntotal} points: "
+        f"{n_keep} finite results per query, all kept ids; the other "
+        f"{k - n_keep} are (+inf, -1)")
+    round_trip(torch, Index, opq, queries_dev, k, oD, oI)
+
+    # -- 6. kernel timings -----------------------------------------------------------------
+    log("== 6. kernels at the main paths' shapes (CUDA events)")
     m_, k_, dc = cfg.num_codebooks, cfg.codebook_size, cfg.code_dim
     b = heads.shape[0]
     enc_ms = cuda_ms(torch, lambda: ops.unq_encode(heads, books), reps=50)
@@ -403,6 +581,18 @@ def main() -> int:
     # ms covers both launches (scan, then merge of the slices' lists)
     scan_bound = bound_ms(float(q) * n * m_, FP32_ADDS,
                           n * m_ + 4.0 * n + 4.0 * q * m_ * k_ + 8.0 * q * L)
+    d = cfg.dim
+    rr_ms = cuda_ms(torch, lambda: ops.rerank_gather_dist(
+        o_cand_codes, queries_dev, table), reps=20)
+    rr_plain = cuda_ms(torch, lambda: rerank_dist.rerank_gather_dist_chunked(
+        o_cand_codes, queries_dev, table), reps=5)
+    # per (q, l): (M-1)*D chain adds, D subtractions and D FMAs that
+    # square and accumulate, each one f32 instruction at the add rate
+    rr_bound = bound_ms(float(q) * L * (m_ + 1) * d, FP32_ADDS,
+                        q * L * m_ + 4.0 * (m_ * k_ * d + q * d + q * L))
+    launches = {name: launches_add[name] + launches_search[name]
+                + sum(ph[name] for ph in o_launches.values())
+                for name in counters}
     kernels = [
         {"name": "unq_encode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/unq_encode.cu",
@@ -416,9 +606,17 @@ def main() -> int:
          "launches": launches["adc_scan_topl"], "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain, "bound_ms": scan_bound[0],
          "bound_by": scan_bound[1], "library_ms": None},
+        {"name": "rerank_gather_dist", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rerank_dist.cu",
+         "replaces": "src/repro/kernels/rerank_dist.py:99",
+         "launches": launches["rerank_gather_dist"],
+         "max_abs_err": max(rr_err, s2_err), "ms": rr_ms,
+         "plain_ms": rr_plain, "bound_ms": rr_bound[0],
+         "bound_by": rr_bound[1], "library_ms": None},
     ]
     shapes = {"unq_encode": f"B={b} M={m_} K={k_} d_c={dc}",
-              "adc_scan_topl": f"Q={q} N={n} M={m_} K={k_} L={L}"}
+              "adc_scan_topl": f"Q={q} N={n} M={m_} K={k_} L={L}",
+              "rerank_gather_dist": f"Q={q} L={L} M={m_} K={k_} D={d}"}
     for kr in kernels:
         lib = "none" if kr["library_ms"] is None else \
             f"{kr['library_ms']:.4f}"
@@ -430,6 +628,10 @@ def main() -> int:
         f"shared memory at no bank conflict, is "
         f"{q * n * m_ / SMEM_WORDS_PER_S * 1e3:.4f} ms; ms is the scan and "
         f"merge launches together")
+    log(f"  rerank_gather_dist: a second ceiling, its Q*L*M*D table reads "
+        f"from shared memory at no bank conflict, is "
+        f"{q * L * m_ * d / SMEM_WORDS_PER_S * 1e3:.4f} ms (the kernel "
+        f"reads the table through L2)")
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

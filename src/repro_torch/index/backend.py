@@ -7,13 +7,16 @@ same names as ``repro/index/backend.py``).
                 matrix) and ``fused_topl`` (that stage is one fused scan
                 + top-L kernel).
   * ``torch`` — the plain PyTorch versions: the chunked stream
-                (``streaming_topl``). Valid only for ``device="cpu"``.
+                (``streaming_topl``) and the chunked table rerank. Valid
+                only for ``device="cpu"``.
 
 ``"auto"`` resolves by the index's device: ``cuda`` for a CUDA device,
 which raises when there is no card (the port never drops to the CPU on
 its own), ``torch`` for an explicit ``device="cpu"``. The reference's
-other flags (``fused_rerank``, ``dispatch_topl``, ``tuned``,
-``quantized_lut``) arrive with the slices that port them.
+other flags (``dispatch_topl``, ``tuned``, ``quantized_lut``) arrive
+with the slices that port them. ``fused_rerank`` is not declared: the
+reference uses it to pick the table rerank's impl, and here
+``ops.rerank_gather_dist`` picks it by the tensors' device.
 """
 from __future__ import annotations
 

@@ -1,14 +1,14 @@
 """The ``Index`` protocol (the port of ``repro/index/base.py``): a
 FAISS-style object that owns a compressed database you can query.
 
-    index = index_factory("UNQ8x256,Rerank500", dim=96)   # device="cuda"
-    index = UNQIndex.from_trained(model)                   # training: A4
+    index = index_factory("OPQ8x256,Rerank500", dim=96)   # device="cuda"
+    index.train(train_vectors)        # PQ/OPQ; UNQ: from_trained (A4)
     index.add(base_vectors)           # compress + append to the database
     D, I = index.search(queries, k)   # two-stage compressed-domain search
     index.save(path); index = Index.load(path)
 
-Every implementation supplies the quantizer primitives (encode, LUT
-build, reconstruct); the two-stage search itself, a streaming ADC scan
+Every implementation supplies the quantizer primitives (fit, encode,
+LUT build, reconstruct); the two-stage search itself, a streaming ADC scan
 with a per-query top-L (d2, Eq. 8) and then an exact-reconstruction
 rerank (d1, Eq. 7), is written once here. Stage 1 is a
 ``CandidateGenerator`` and stage 2 a ``Reranker``, both resolved through
@@ -16,7 +16,7 @@ the backend registry. An index lives on one device (``device=``,
 default ``"cuda"``); its codes and model stay there and results come
 back there.
 
-Not ported yet: ``train`` (ROADMAP A4) and the ``use_d2=False``
+Not ported yet: training UNQ (ROADMAP A4) and the ``use_d2=False``
 exhaustive-rerank ablation (ROADMAP A3).
 """
 from __future__ import annotations
@@ -79,9 +79,15 @@ class Index(abc.ABC):
         ...
 
     def train(self, xs, **kw) -> "Index":
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP A4); build the index from "
-            "a trained model (UNQIndex.from_trained)")
+        """Fit the index on (n, dim) training vectors; returns self.
+        Keyword arguments go to ``_fit_quantizer`` (``seed=``,
+        ``iters=``, ...), which moves ``xs`` to the index's device."""
+        self._fit_quantizer(xs, **kw)
+        return self
+
+    @abc.abstractmethod
+    def _fit_quantizer(self, xs, **kw) -> None:
+        """Fit this index's own quantizer."""
 
     # -- quantizer primitives (implementation-specific) --------------------
 
@@ -96,6 +102,14 @@ class Index(abc.ABC):
     @abc.abstractmethod
     def _reconstruct(self, codes: torch.Tensor) -> torch.Tensor:
         """(n, M) codes -> (n, dim) reconstructions for stage 2."""
+
+    def _decode_table(self) -> torch.Tensor | None:
+        """(M, K, D) f32 additive decode table with ``recon = sum_m
+        table[m, code_m]`` (``ref.decode_with_table``), or None when
+        reconstruction needs a learned decoder (UNQ): stage 2 then
+        dedups candidates instead of running the fused table kernel.
+        Built from the current model on each call."""
+        return None
 
     # -- add / search ------------------------------------------------------
 

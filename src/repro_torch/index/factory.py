@@ -1,13 +1,17 @@
 """FAISS-style string factory (the port of ``repro/index/factory.py``).
 
     index = index_factory("UNQ8x256,Rerank500", dim=96)   # on "cuda"
+    index = index_factory("OPQ8x256,Rerank500", dim=96)
 
-The port's grammar so far is the flat UNQ index:
+The port's grammar so far covers the flat indexes:
 
   UNQ{M}[x{K}]   neural quantizer (the paper); M codebooks, K codewords
                  (default 256)
+  PQ{M}[x{K}]    product quantization
+  OPQ{M}[x{K}]   optimized PQ: learned rotation + PQ
   Rerank{L}      stage-2 exact-reconstruction budget (d1); UNQ keeps its
-                 paper default L=500 without it
+                 paper default L=500 without it, PQ and OPQ are ADC-only
+                 (L=0) without it
 
 Every other component of the reference's grammar raises, naming the
 ROADMAP slice that brings it.
@@ -17,15 +21,15 @@ from __future__ import annotations
 import re
 
 from repro_torch.index.base import Index
+from repro_torch.index.pq_index import OPQIndex, PQIndex
 from repro_torch.index.unq_index import UNQIndex
 
-_QUANT_RE = re.compile(r"^(UNQ|PQ|OPQ|RVQ)(\d+)(?:x(\d+))?$")
+_QUANT_RE = re.compile(r"^(UNQ|PQ|OPQ)(\d+)(?:x(\d+))?$")
 _RERANK_RE = re.compile(r"^Rerank(\d+)$")
 
 #: reference components not ported yet -> (pattern, the slice bringing it)
 _NOT_PORTED = (
-    (re.compile(r"^(PQ|OPQ|RVQ)\d+(?:x\d+)?$"),
-     "the PQ/OPQ/RVQ baselines (ROADMAP A5)"),
+    (re.compile(r"^RVQ\d+(?:x\d+)?$"), "RVQ (ROADMAP A5b)"),
     (re.compile(r"^(IVF\d+|NProbe\d+|Residual)$"), "IVF (ROADMAP A7)"),
     (re.compile(r"^Scan\(\w+\)$"),
      "pinning a scan backend by name (the port's backend follows "
@@ -50,17 +54,22 @@ def index_factory(spec: str, dim: int, *, device="cuda") -> Index:
         if m:
             if quant is not None:
                 raise ValueError(f"multiple quantizers in {spec!r}")
-            quant = (int(m.group(2)), int(m.group(3) or 256))
+            quant = (m.group(1), int(m.group(2)), int(m.group(3) or 256))
             continue
         m = _RERANK_RE.match(comp)
         if m:
             rerank = int(m.group(1))
             continue
         raise ValueError(f"cannot parse component {comp!r} of factory string "
-                         f"{spec!r} (expected UNQ8x256 / Rerank500)")
+                         f"{spec!r} (expected UNQ8x256 / PQ8 / OPQ8x256 / "
+                         "Rerank500)")
     if quant is None:
         raise ValueError(f"no quantizer component in factory string {spec!r}")
     kw = {"device": device}
     if rerank is not None:
         kw["rerank"] = rerank
-    return UNQIndex(dim, num_codebooks=quant[0], codebook_size=quant[1], **kw)
+    kind, books, size = quant
+    if kind == "UNQ":
+        return UNQIndex(dim, num_codebooks=books, codebook_size=size, **kw)
+    cls = PQIndex if kind == "PQ" else OPQIndex
+    return cls(dim, num_books=books, book_size=size, **kw)

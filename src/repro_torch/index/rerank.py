@@ -4,6 +4,13 @@
 Eq. 7, over each query's stage-1 candidates) delegates to a
 ``Reranker``:
 
+  * ``TableRerank``  table-decodable quantizers (PQ / OPQ: ``recon =
+                     sum_m table[m, code_m]``): the (Q, L, M) uint8
+                     candidate codes are gathered and
+                     ``ops.rerank_gather_dist`` decodes and reduces them
+                     without a (Q, L, D) reconstruction: the fused
+                     kernel on the card, the chunked plain version on
+                     the CPU.
   * ``DedupRerank``  decoder quantizers (UNQ): the (Q * L) pool is
                      deduplicated on the device (``torch.unique``), each
                      unique code row is decoded once in fixed-size
@@ -14,14 +21,15 @@ Eq. 7, over each query's stage-1 candidates) delegates to a
                      candidate) pair, (Q, L, D). Kept as the test
                      reference only.
 
-The table quantizers' fused rerank (``TableRerank``) and the residual-IVF
-wrapper arrive with their slices (ROADMAP A5, A7).
+The residual-IVF wrapper arrives with its slice (ROADMAP A7).
 """
 from __future__ import annotations
 
 import abc
 
 import torch
+
+from repro_torch.kernels import ops
 
 #: decode-batch ladder for DedupRerank (the smallest power-of-two bucket
 #: >= the unique count serves small pools)
@@ -51,6 +59,20 @@ class VmapRerank(Reranker):
         recon = index._reconstruct(index.codes[cand.reshape(-1).long()])
         recon = recon.reshape(q, l, -1)
         return torch.sum(torch.square(recon - queries[:, None, :]), dim=-1)
+
+
+class TableRerank(Reranker):
+    """Stage 2 for table-decodable quantizers: the candidates' codes are
+    gathered as uint8 (L * M bytes per query, ~50x fewer than the float
+    reconstruction) and ``ops.rerank_gather_dist`` does the rest."""
+
+    def __init__(self, table: torch.Tensor):
+        self.table = table              # (M, K, D) f32 decode table
+
+    def distances(self, index, queries, cand):
+        cand_codes = index.codes[cand.long()]              # (Q, L, M) u8
+        return ops.rerank_gather_dist(cand_codes, queries.float(),
+                                      self.table)
 
 
 def _gathered_dist_chunked(recon_u: torch.Tensor, queries: torch.Tensor,
@@ -88,7 +110,11 @@ class DedupRerank(Reranker):
 
 
 def reranker_for(index) -> Reranker:
-    """Resolve an index to its stage-2 reranker. The only ported index is
-    UNQ, a decoder quantizer, which gets ``DedupRerank`` on every
-    backend; the table quantizers' ``TableRerank`` comes with ROADMAP A5."""
-    return DedupRerank()
+    """Resolve an index to its stage-2 reranker: ``TableRerank`` for a
+    table-decodable index (PQ / OPQ) and ``DedupRerank`` for a decoder
+    quantizer (UNQ), on both backends. Like the reference, which gives
+    its streaming backends without ``fused_rerank`` the chunked table
+    path, the table path is kept on the CPU: ``ops.rerank_gather_dist``
+    runs its plain version there and the fused kernel on the card."""
+    table = index._decode_table()
+    return DedupRerank() if table is None else TableRerank(table)

@@ -71,6 +71,11 @@ class UNQIndex(base.Index):
     def is_trained(self) -> bool:
         return self.model is not None
 
+    def _fit_quantizer(self, xs, **kw):
+        raise NotImplementedError(
+            "training UNQ is not ported yet (ROADMAP A4); build the index "
+            "from a trained model (UNQIndex.from_trained)")
+
     def _encode(self, xs):
         return encode_database(self.model, xs)
 

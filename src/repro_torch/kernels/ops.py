@@ -6,7 +6,8 @@ kernel, and if the kernel cannot run (no ``nvcc``, another GPU, a shape
 it does not take) the call raises. The wrappers pad the small inputs to
 the kernels' tile multiples (the LUTs to ``BLOCK_Q`` queries, the heads
 to ``BLOCK_B`` rows); the N-long streams are never padded, since the
-scan kernel masks the ragged edge of N itself.
+scan kernel masks the ragged edge of N itself, and neither is stage 2's
+(Q, L) candidate grid, whose edges the rerank kernel masks.
 
 The reference's reduced-precision stage 1 (``lut_dtype``/``overfetch``)
 is not ported yet and raises instead of silently scanning in f32.
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import topl_scan, unq_encode as _unq_encode
+from repro_torch.kernels import rerank_dist, topl_scan
+from repro_torch.kernels import unq_encode as _unq_encode
 
 
 def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -70,3 +72,17 @@ def unq_encode(heads: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
         return _unq_encode.unq_encode_cuda(
             padded, codebooks.float().contiguous())[:b]
     return _unq_encode.unq_encode_plain(heads, codebooks)
+
+
+def rerank_gather_dist(cand_codes: torch.Tensor, queries: torch.Tensor,
+                       table: torch.Tensor) -> torch.Tensor:
+    """Stage 2 of the table quantizers: cand_codes (Q, L, M) uint8,
+    queries (Q, D), table (M, K, D) -> d1 (Q, L) f32 with ``d1[q, l] =
+    ||queries[q] - ref.decode_with_table(cand_codes[q, l], table)||^2``,
+    without a (Q, L, D) reconstruction."""
+    queries = queries.float()
+    table = table.float()
+    if cand_codes.is_cuda:
+        return rerank_dist.rerank_gather_dist_cuda(
+            cand_codes.contiguous(), queries.contiguous(), table.contiguous())
+    return rerank_dist.rerank_gather_dist_chunked(cand_codes, queries, table)

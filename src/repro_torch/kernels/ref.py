@@ -1,4 +1,4 @@
-"""Torch oracles for the kernels of the flat UNQ path.
+"""Torch oracles for the port's kernels.
 
 The port's counterparts of ``repro/kernels/ref.py``: the ground truth the
 CUDA kernels and the plain streaming versions are held to. Sums over the
@@ -59,3 +59,26 @@ def unq_encode_ref(heads: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor
     with the first maximum winning."""
     scores = torch.einsum("bmd,mkd->bmk", heads, codebooks)
     return torch.argmax(scores, dim=-1).to(torch.int32)
+
+
+def decode_with_table(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Additive table decode: codes (..., M) integer, table (M, K, D) ->
+    (..., D) with ``recon = table[0, codes[..., 0]] + table[1, ...] + ...``,
+    accumulated left to right over m. This is the reconstruction stage 2
+    of the table quantizers is defined over (PQ embeds each sub-codebook
+    in its D-slice; OPQ also folds in the rotation)."""
+    c = codes.long()
+    acc = table[0][c[..., 0]]
+    for m in range(1, table.shape[0]):
+        acc = acc + table[m][c[..., m]]
+    return acc
+
+
+def rerank_gather_dist_ref(cand_codes: torch.Tensor, queries: torch.Tensor,
+                           table: torch.Tensor) -> torch.Tensor:
+    """Materialized oracle of stage 2 over a decode table: cand_codes
+    (Q, L, M), queries (Q, D), table (M, K, D) -> d1 (Q, L) with
+    ``d1[q, l] = ||queries[q] - decode_with_table(cand_codes[q, l])||^2``.
+    Builds the whole (Q, L, D) reconstruction on purpose."""
+    recon = decode_with_table(cand_codes, table)
+    return torch.sum(torch.square(recon - queries[:, None, :]), dim=-1)

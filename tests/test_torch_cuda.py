@@ -11,6 +11,9 @@ a machine that has only PyTorch:
 ties and filtered (+inf) entries included. ``unq_encode`` sums its dot
 products in another order than the plain einsum, so codes must be equal
 wherever the top-2 score gap exceeds 1e-5 of the row's largest |score|.
+``rerank_gather_dist`` sums over D in another order than the plain
+version: d1 allclose (rtol 1e-5, atol 1e-5) on real tables, bit-identical
+on integer-valued ones.
 """
 import copy
 
@@ -21,8 +24,8 @@ import torch
 from repro_torch.configs.unq_paper import SMOKE
 from repro_torch.core import unq
 from repro_torch.data import descriptors
-from repro_torch.index import UNQIndex
-from repro_torch.kernels import ops, topl_scan, unq_encode
+from repro_torch.index import Index, UNQIndex, index_factory
+from repro_torch.kernels import ops, rerank_dist, topl_scan, unq_encode
 
 ENCODE_GAP_RTOL = 1e-5
 TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -149,3 +152,88 @@ def test_main_path_on_the_card_matches_cpu(cuda_device):
         assert torch.equal(got[1][~fin], want[1][~fin])
     assert unq_encode.unq_encode_cuda.launches > launches[0]
     assert topl_scan.adc_scan_topl_cuda.launches > launches[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,l,m,k,d,integer", [
+    (1000, 500, 8, 256, 96, False),     # the main path's shapes
+    (1000, 500, 8, 256, 96, True),
+    (13, 77, 16, 256, 96, False),       # DEEP_16B widths, ragged L
+    (5, 130, 2, 16, 200, False),        # D > 192, no multiple of 32
+    (3, 1, 4, 64, 32, True)])
+def test_rerank_gather_dist_cuda_matches_plain(cuda_device, q, l, m, k, d,
+                                               integer):
+    rng = np.random.default_rng(q + l + d)
+    cand = torch.as_tensor(rng.integers(0, k, (q, l, m)).astype(np.uint8))
+    if integer:
+        table = rng.integers(-3, 4, (m, k, d))
+        queries = rng.integers(-4, 5, (q, d))
+    else:
+        table = rng.normal(size=(m, k, d))
+        queries = rng.normal(size=(q, d))
+    table = torch.as_tensor(table.astype(np.float32))
+    queries = torch.as_tensor(queries.astype(np.float32))
+    want = ops.rerank_gather_dist(cand, queries, table)
+    before = rerank_dist.rerank_gather_dist_cuda.launches
+    got = ops.rerank_gather_dist(cand.to(cuda_device),
+                                 queries.to(cuda_device),
+                                 table.to(cuda_device)).cpu()
+    torch.cuda.synchronize()
+    assert rerank_dist.rerank_gather_dist_cuda.launches == before + 1
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_rerank_gather_dist_cuda_guards_its_inputs(cuda_device):
+    table = torch.zeros((2, 64, 32), device=cuda_device)
+    queries = torch.zeros((3, 32), device=cuda_device)
+    cand = torch.zeros((3, 5, 2), dtype=torch.uint8, device=cuda_device)
+    cand[1, 2, 1] = 200                      # a code past K=64
+    out = rerank_dist.rerank_gather_dist_cuda(cand, queries, table)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1, 2]) and int(torch.isnan(out).sum()) == 1
+    with pytest.raises(ValueError, match="uint8"):
+        rerank_dist.rerank_gather_dist_cuda(cand.int(), queries, table)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rerank_dist.rerank_gather_dist_cuda(cand, queries.cpu(), table)
+    with pytest.raises(ValueError, match="contiguous"):
+        rerank_dist.rerank_gather_dist_cuda(
+            cand, queries, table.transpose(1, 2).contiguous()
+            .transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["PQ8x256,Rerank100", "OPQ8x256,Rerank100"])
+def test_pq_index_on_the_card_matches_cpu(cuda_device, spec, tmp_path):
+    """Train, add and search on the card; the same trained index on the
+    CPU (the plain versions), including filters that underfill the
+    pool (fewer kept points than k)."""
+    ds = descriptors.make_synthetic_dataset(
+        "deep", n_train=4000, n_base=20_000, n_query=64, n_centers=64,
+        seed=2, compute_gt=False)
+    gpu = index_factory(spec, dim=96, device=cuda_device)
+    gpu.train(ds.train, outer_iters=2, kmeans_iters=5).add(ds.base)
+    gpu.save(tmp_path / "index")
+    cpu = Index.load(tmp_path / "index", device="cpu")
+    launches = rerank_dist.rerank_gather_dist_cuda.launches
+    rng = np.random.default_rng(0)
+    for mask in (None, rng.random(20_000) < 3e-4,
+                 rng.random((64, 20_000)) < 3e-4):
+        want = cpu.search(ds.queries, 10, filter_mask=mask)
+        got = [x.cpu() for x in gpu.search(ds.queries, 10, filter_mask=mask)]
+        assert torch.equal(torch.isinf(got[0]), torch.isinf(want[0]))
+        fin = torch.isfinite(want[0])
+        if mask is not None:
+            assert (~fin).any()
+        np.testing.assert_allclose(got[0][fin].numpy(), want[0][fin].numpy(),
+                                   **TOL)
+        apart = torch.ones_like(fin)
+        gap = (want[0][:, 1:] - want[0][:, :-1]).abs() > 1e-4
+        apart[:, 1:] &= gap
+        apart[:, :-1] &= gap
+        assert torch.equal(got[1][apart & fin], want[1][apart & fin])
+        assert (got[1][~fin] == -1).all()
+    assert rerank_dist.rerank_gather_dist_cuda.launches == launches + 3

@@ -243,8 +243,8 @@ def test_factory_builds_the_flat_unq_index():
 
 
 @pytest.mark.parametrize("spec,err,match", [
-    ("PQ8x256,Rerank200", NotImplementedError, "A5"),
-    ("OPQ8", NotImplementedError, "A5"),
+    ("RVQ8x256,Rerank200", NotImplementedError, "A5b"),
+    ("RVQ8", NotImplementedError, "A5b"),
     ("IVF64,UNQ8x256", NotImplementedError, "A7"),
     ("UNQ8x256,NProbe4", NotImplementedError, "A7"),
     ("UNQ8x256,Scan(xla)", NotImplementedError, "device="),
