@@ -13,18 +13,25 @@ Phases, each printed as it runs; any failure exits nonzero:
      main paths' shapes: ``unq_encode`` at B=8192 on DEEP_8B (codes equal
      outside near-ties), ``adc_scan_topl`` at N=1,000,000, M=8, K=256,
      L=500 on real LUTs, on tie-heavy integer LUTs, and with a (Q, N)
-     filter at an N that is no multiple of the tile (bit-identical),
-     ``rerank_gather_dist`` at Q=1000, L=500, M=8, K=256, D=96 on a
-     real OPQ table (within RERANK_TOL) and on an integer-valued table
-     (bit-identical);
+     filter at an N that is no multiple of the tile, its f16 and i8
+     faces at the same N with a pool of 1,000 (L=500, overfetch 2) on
+     real LUTs and under the filter, its f32 face at L=1,025, 1,500 and
+     4,096 and at M=32, K=256, L=500 on N=100,000 (all bit-identical),
+     ``quantize_luts`` on the card against the CPU (scales and codes bit
+     for bit), ``adc_scan`` at N=1M and ``adc_scan_batch`` at Q=1,000,
+     N=1M (bit-identical), ``rerank_gather_dist`` at Q=1000, L=500, M=8,
+     K=256, D=96 on a real OPQ table (within RERANK_TOL) and on an
+     integer-valued table (bit-identical);
   4. the UNQ path: ``index_factory("UNQ8x256,Rerank500", dim=96)`` ->
      ``UNQIndex.from_trained`` on DEEP_8B weights drawn from a numpy seed
      -> ``add`` of 1,000,000 synthetic Deep1M-like descriptors in batches
      of several ENCODE_BUCKETS sizes -> ``search`` of 1,000 queries at
      k=100, with phase times, peak memory, each kernel's launch count
      (``unq_encode`` in add and ``adc_scan_topl`` in search must be
-     > 0), a save/load round trip (identical results), and checks of the
-     output against the plain versions;
+     > 0), a save/load round trip (identical results), checks of the
+     output against the plain versions, and a float16 search at
+     overfetch 2 with its times and the pool's recall against the exact
+     stage 1;
   5. the OPQ path: ``index_factory("OPQ8x256,Rerank500", dim=96)`` ->
      ``train`` on 100,000 vectors with the reference's default iteration
      counts -> ``add`` of the same 1,000,000 descriptors -> ``search``
@@ -33,6 +40,14 @@ Phases, each printed as it runs; any failure exits nonzero:
      phase (``adc_scan_topl`` and ``rerank_gather_dist`` must be > 0 in
      search), a save/load round trip, stage 2 and the final ids against
      the plain stage 2, and a filtered search that underfills the pool;
+     then the quantized searches (``lut_dtype="float16"`` at overfetch
+     2, ``"int8"`` at overfetch 2 and 3), each with its stage-1 and
+     warm search times, recall@L of its stage 1 against the exact one,
+     R@1/10/100 and its results against the plain quantized path; the
+     same index under ``Scan(onehot)`` (the materialized (Q, N) stage 1
+     on ``adc_scan_batch``), equal to the streaming search bit for bit,
+     with its peak memory; and ``search_pq`` (one ``adc_scan`` per
+     query) over the OPQ codes with its recall;
   6. one JSON line of per-kernel times (CUDA events) beside their bounds;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -46,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -80,6 +96,30 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(nvcc_log: str) -> list[str]:
+    """One line per kernel of ``nvcc -Xptxas -v`` output: its name
+    (demangled by ``c++filt`` where the machine has it), registers and
+    spills."""
+    entries, name, spill = [], "?", ""
+    for ln in nvcc_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+        elif "spill" in ln:
+            spill = ln.split(",", 1)[-1].strip()
+        elif "registers" in ln:
+            entries.append((name, f"{ln.split(':', 1)[-1].strip()}; {spill}"))
+    names = [n for n, _ in entries]
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    names = [n.replace("(anonymous namespace)::", "").removeprefix("void ")
+             .split("(")[0] for n in names]
+    return [f"{n}: {r}" for n, (_, r) in zip(names, entries)]
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -141,30 +181,42 @@ def encode_parity(torch, ops_mod, unq_encode, heads, books):
     return int(diff.sum()), int(near.sum()), float(lost.max())
 
 
-def scan_parity(torch, topl_scan, ops_mod, codes, luts, bias, qbias, topl,
-                name, need_inf=False):
-    """Kernel vs plain ``adc_scan_topl``: bit-identical (score, id);
-    ``need_inf`` requires filtered (+inf) entries in the result."""
-    got = ops_mod.adc_scan_topl(codes, luts, topl=topl, bias=bias,
-                                qbias=qbias)
-    want = topl_scan.adc_scan_topl_stream(codes, luts, bias, qbias,
+def scan_parity(torch, topl_scan, ops_mod, lut_quant, codes, luts, bias,
+                qbias, topl, name, need_inf=False, lut_dtype="float32"):
+    """Kernel vs plain ``adc_scan_topl`` at one table type (the tables
+    quantized once, both sides given the same ones): bit-identical
+    (score, id); ``need_inf`` requires filtered (+inf) entries in the
+    result."""
+    qluts, scale = lut_quant.quantize_luts(luts, lut_dtype)
+    got = ops_mod._scan_topl_run(codes, qluts, scale, bias, qbias, topl=topl)
+    want = topl_scan.adc_scan_topl_stream(codes, qluts, bias, qbias, scale,
                                           topl=topl, n_valid=codes.shape[0])
     torch.cuda.synchronize()
     same_ids = torch.equal(got[1], want[1])
     same_scores = torch.equal(got[0], want[0])
     err = float((got[0] - want[0]).nan_to_num(0.0, 0.0, 0.0).abs().max())
     n_inf = int(torch.isinf(got[0]).sum())
-    log(f"  adc_scan_topl [{name}]: Q={luts.shape[0]} N={codes.shape[0]} "
-        f"L={topl} qbias={'yes' if qbias is not None else 'no'}: "
+    bq = topl_scan.block_q(luts.shape[1], luts.shape[2], topl, lut_dtype)
+    log(f"  adc_scan_topl {lut_dtype} [{name}]: Q={luts.shape[0]} "
+        f"N={codes.shape[0]} M={luts.shape[1]} L={topl} (BQ={bq}) "
+        f"qbias={'yes' if qbias is not None else 'no'}: "
         f"ids equal={same_ids} scores equal={same_scores} "
         f"max_abs_err={err} (+inf entries: {n_inf})")
     if not (same_ids and same_scores):
-        raise AssertionError(f"adc_scan_topl [{name}] differs from the "
-                             "plain version")
+        raise AssertionError(f"adc_scan_topl {lut_dtype} [{name}] differs "
+                             "from the plain version")
     if need_inf and n_inf == 0:
         raise AssertionError(f"adc_scan_topl [{name}]: no filtered entry "
                              "reached the result")
     return err
+
+
+def pool_recall(torch, got, want) -> float:
+    """Mean share of each query's ``want`` ids found among its ``got``
+    ids (recall@L of one candidate pool against another)."""
+    hits = [torch.isin(want[i], got[i]).float().mean()
+            for i in range(want.shape[0])]
+    return float(torch.stack(hits).mean())
 
 
 def rerank_parity(torch, ops_mod, rerank_dist, cand, queries, table, name,
@@ -226,6 +278,7 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -237,8 +290,9 @@ def main() -> int:
     from repro_torch.data import descriptors
     from repro_torch.index import (Index, OPQIndex, UNQIndex,
                                    candidate_generator_for, index_factory)
-    from repro_torch.kernels import (build, ops, rerank_dist, topl_scan,
-                                     unq_encode)
+    from repro_torch.core import baselines
+    from repro_torch.kernels import (adc_scan, build, lut_quant, ops, ref,
+                                     rerank_dist, topl_scan, unq_encode)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -265,9 +319,9 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, "
         "in parallel)")
     for res in built.values():
-        regs = [ln.strip() for ln in res.log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"  {res.name}.cu: {res.seconds:.2f} s; " + " | ".join(regs))
+        log(f"  {res.name}.cu: {res.seconds:.2f} s")
+        for line in ptxas_report(res.log):
+            log(f"    {line}")
 
     # -- data and weights (set-up) -------------------------------------------------
     cfg = DEEP_8B
@@ -309,14 +363,18 @@ def main() -> int:
     codes_rand = torch.randint(0, 256, (n1, cfg.num_codebooks),
                                dtype=torch.uint8, device=dev, generator=gen)
     zeros = torch.zeros(n1, device=dev)
-    scan_err = scan_parity(torch, topl_scan, ops, codes_rand,
-                           luts_all[:sub].contiguous(), zeros, None, 500,
-                           "real LUTs")
+    real = luts_all[:sub].contiguous()
+    parity = {"float32": 0.0, "float16": 0.0, "int8": 0.0}
+
+    def check(dtype, *a, **kw):
+        parity[dtype] = max(parity[dtype], scan_parity(
+            torch, topl_scan, ops, lut_quant, *a, lut_dtype=dtype, **kw))
+
+    check("float32", codes_rand, real, zeros, None, 500, "real LUTs")
     int_luts = torch.randint(-2, 3, (sub, cfg.num_codebooks, 256),
                              device=dev, generator=gen).float()
-    scan_err = max(scan_err, scan_parity(
-        torch, topl_scan, ops, codes_rand, int_luts, zeros, None, 500,
-        "tie-heavy integer LUTs"))
+    check("float32", codes_rand, int_luts, zeros, None, 500,
+          "tie-heavy integer LUTs")
     n_rag = n1 - 17                    # no multiple of the 256-row tile
     # ~400 kept points per query < L: +inf (filtered) entries reach the
     # result and must keep their real ids in ascending order
@@ -324,10 +382,56 @@ def main() -> int:
     qbias = torch.where(keep, 0.0, float("inf"))
     rbias = torch.randint(-1, 2, (n_rag,), device=dev,
                           generator=gen).float()
-    scan_err = max(scan_err, scan_parity(
-        torch, topl_scan, ops, codes_rand[:n_rag].contiguous(), int_luts,
-        rbias, qbias, 500, "filter qbias, ragged N", need_inf=True))
-    del codes_rand, qbias, keep
+    codes_rag = codes_rand[:n_rag].contiguous()
+    check("float32", codes_rag, int_luts, rbias, qbias, 500,
+          "filter qbias, ragged N", need_inf=True)
+    # the quantized faces at the pool of L=500, overfetch 2
+    pool = lut_quant.pool_width(500, 2, n1)
+    for dtype in ("float16", "int8"):
+        check(dtype, codes_rand, real, zeros, None, pool, "real LUTs")
+        check(dtype, codes_rag, real, rbias, qbias, pool,
+              "filter qbias, ragged N", need_inf=True)
+    # wide heaps and wide codebooks (ROADMAP C1): fewer queries per block
+    for topl in (1025, 1500, 4096):
+        check("float32", codes_rand, real, zeros, None, topl,
+              "real LUTs, wide heap")
+    codes32 = torch.randint(0, 256, (100_000, 32), dtype=torch.uint8,
+                            device=dev, generator=gen)
+    luts32 = torch.randn((sub, 32, 256), device=dev, generator=gen)
+    check("float32", codes32, luts32, zeros[:100_000], None, 500,
+          "M=32 (PQ32x256 width)")
+    del qbias, keep, codes32, luts32
+
+    # quantize_luts on the card against the same call on the CPU
+    q_same = []
+    for dtype in ("float16", "int8"):
+        got_q, got_s = lut_quant.quantize_luts(luts_all, dtype)
+        want_q, want_s = lut_quant.quantize_luts(luts_all.cpu(), dtype)
+        q_same.append(torch.equal(got_q.cpu(), want_q) and
+                      (want_s is None or torch.equal(got_s.cpu(), want_s)))
+    log(f"  quantize_luts on the card vs the CPU (Q={luts_all.shape[0]}, "
+        f"float16 tables; int8 codes and scales): bit-identical={q_same}")
+    if not all(q_same):
+        raise AssertionError("quantize_luts differs between card and CPU")
+
+    # the materialized scans
+    got1 = ops.adc_scan(codes_rand, luts_all[0])
+    want1 = ref.adc_scan_ref(codes_rand, luts_all[0])
+    same1 = torch.equal(got1, want1)
+    as_err = float((got1 - want1).abs().max())
+    log(f"  adc_scan: N={n1} M={cfg.num_codebooks} K=256: bit-identical="
+        f"{same1} max_abs_err={as_err}")
+    gotb = ops.adc_scan_batch(codes_rand, luts_all)
+    wantb = ref.adc_scan_batch_ref(codes_rand, luts_all)
+    sameb = torch.equal(gotb, wantb)
+    asb_err = float((gotb - wantb).abs().max())
+    log(f"  adc_scan_batch: Q={luts_all.shape[0]} N={n1} "
+        f"M={cfg.num_codebooks} K=256: bit-identical={sameb} "
+        f"max_abs_err={asb_err}")
+    if not (same1 and sameb):
+        raise AssertionError("adc_scan / adc_scan_batch differ from the "
+                             "plain version")
+    del codes_rand, codes_rag, gotb, wantb
 
     # stage 2 of the table quantizers, on a briefly trained OPQ table
     # (dense: the rotation is folded in) and on an integer-valued one
@@ -367,7 +471,9 @@ def main() -> int:
 
     counters = {"unq_encode": unq_encode.unq_encode_cuda,
                 "adc_scan_topl": topl_scan.adc_scan_topl_cuda,
-                "rerank_gather_dist": rerank_dist.rerank_gather_dist_cuda}
+                "rerank_gather_dist": rerank_dist.rerank_gather_dist_cuda,
+                "adc_scan": adc_scan.adc_scan_cuda,
+                "adc_scan_batch": adc_scan.adc_scan_batch_cuda}
 
     def counted(timer, name, fn):
         """Run ``fn`` under the timer with every launch count set to 0
@@ -471,6 +577,30 @@ def main() -> int:
     round_trip(torch, Index, index, queries_dev, k, D, I)
     del cpu_index, gpu_small
 
+    # the reduced-precision stage 1 on the UNQ path: f16 tables, a pool
+    # of 2L re-scored exactly
+    qt = Timer(torch)
+    q16 = {"lut_dtype": "float16", "overfetch": 2}
+    (uD16, uI16), u16_launches = counted(
+        qt, "search f16 x2, first call", lambda: index.search(
+            queries_dev, k, **q16))
+    u_d2_16, u_cand16 = qt("stage 1 f16 x2", lambda: stage1.topl(
+        index.codes, luts, None, topl=index.rerank, **q16))
+    uD16w, uI16w = qt("search f16 x2 (warm)",
+                      lambda: index.search(queries_dev, k, **q16))
+    u16_recall = pool_recall(torch, u_cand16, cand)
+    for name, ms in qt.ms.items():
+        log(f"  {name}: {ms:.3f} ms")
+    log(f"  f16 x2: kernel launches in one search {u16_launches}; recall@L "
+        f"of its stage 1 against the exact stage 1: {u16_recall:.6f}; "
+        f"final ids equal to the exact search on "
+        f"{float((uI16 == I).float().mean()):.6f} of entries")
+    if u16_launches["adc_scan_topl"] <= 0 or not (
+            torch.equal(uD16, uD16w) and torch.equal(uI16, uI16w)):
+        raise AssertionError("the f16 UNQ search did not launch the scan "
+                             "kernel or differs between calls")
+    launches_unq_f16 = u16_launches
+
     # -- 5. the OPQ path -----------------------------------------------------------------
     log("== 5. OPQ path: index_factory -> train -> add -> search")
     spec = "OPQ8x256,Rerank500"
@@ -559,6 +689,108 @@ def main() -> int:
         f"{k - n_keep} are (+inf, -1)")
     round_trip(torch, Index, opq, queries_dev, k, oD, oI)
 
+    # the reduced-precision stage 1: a pool of overfetch * L under f16 or
+    # i8 tables, re-scored with the exact f32 chain
+    quant_launches = {"float16": [launches_unq_f16], "int8": []}
+    bias0 = torch.zeros(opq.ntotal, device=dev)
+    for dtype, over in (("float16", 2), ("int8", 2), ("int8", 3)):
+        kw = {"lut_dtype": dtype, "overfetch": over}
+        qt = Timer(torch)
+        (qD, qI), q_launch = counted(
+            qt, "search, first call", lambda: opq.search(queries_dev, k, **kw))
+        q_d2, q_cand = qt("stage 1", lambda: stage1.topl(
+            opq.codes, o_luts, None, topl=opq.rerank, **kw))
+        qDw, qIw = qt("search (warm)", lambda: opq.search(queries_dev, k,
+                                                          **kw))
+        quant_launches[dtype].append(q_launch)
+        # the plain quantized path on the same LUTs: the plain stream's
+        # pool, the exact re-score, the same stage 2
+        pool_l = lut_quant.pool_width(opq.rerank, over, opq.ntotal)
+        qluts, scale = lut_quant.quantize_luts(o_luts, dtype)
+        _, plain_pool = topl_scan.adc_scan_topl_stream(
+            opq.codes, qluts, bias0, None, scale, topl=pool_l,
+            n_valid=opq.ntotal)
+        p_d2, p_cand = ops._rescore_flat(opq.codes, o_luts, bias0, None,
+                                         plain_pool, opq.rerank)
+        pD, pI = opq._rerank_topk(queries_dev, p_cand, k)
+        same_stage1 = torch.equal(q_d2, p_d2) and torch.equal(q_cand, p_cand)
+        same_final = torch.equal(qD, pD) and torch.equal(qI, pI)
+        rec = pool_recall(torch, q_cand, o_cand)
+        q_recalls = {f"R@{r}": recall_at(qI, gt_dev, r) for r in (1, 10, 100)}
+        tag = f"{dtype} x{over} (pool {pool_l})"
+        for name, ms in qt.ms.items():
+            log(f"  {tag} {name}: {ms:.3f} ms")
+        log(f"  {tag}: recall@L of stage 1 against the exact stage 1 "
+            f"{rec:.6f}; {q_recalls}; stage 1 equal to the plain quantized "
+            f"path={same_stage1}, final (D, I) equal={same_final}; launches "
+            f"in one search {q_launch}")
+        if q_launch["adc_scan_topl"] <= 0 or not (same_stage1 and same_final
+                                                   and torch.equal(qD, qDw)
+                                                   and torch.equal(qI, qIw)):
+            raise AssertionError(f"the {tag} search differs from the plain "
+                                 "quantized path or did not launch its scan")
+        if rec < 0.99:
+            raise AssertionError(f"{tag}: stage-1 recall {rec} below 0.99")
+    del qluts, scale, plain_pool
+
+    # the same trained index under Scan(onehot): the materialized (Q, N)
+    # stage 1 (adc_scan_batch), which must equal the streaming search
+    # (built from the factory string around the trained model; its add
+    # must give the streaming index's codes back)
+    mat = index_factory("OPQ8x256,Rerank500,Scan(onehot)", dim=cfg.dim)
+    mat.model = opq.model
+    add_all(mat)
+    if mat.backend != "onehot" or not torch.equal(mat.codes, opq.codes):
+        raise AssertionError("Scan(onehot) did not pin the onehot backend "
+                             "or its add gave other codes")
+    mt = Timer(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    (mD, mI), m_launch = counted(mt, "search, first call",
+                                 lambda: mat.search(queries_dev, k))
+    m_peak = torch.cuda.max_memory_allocated() - base_mem
+    m_d2, m_cand = mt("stage 1", lambda: candidate_generator_for(
+        dev, mat.backend).topl(mat.codes, o_luts, None, topl=mat.rerank))
+    mDw, mIw = mt("search (warm)", lambda: mat.search(queries_dev, k))
+    for name, ms in mt.ms.items():
+        log(f"  Scan(onehot) {name}: {ms:.3f} ms")
+    m_same = all(torch.equal(a, b) for a, b in (
+        (mD, oD), (mI, oI), (mDw, oD), (mIw, oI), (m_d2, o_d2),
+        (m_cand, o_cand)))
+    log(f"  Scan(onehot): Q={N_QUERY} N={mat.ntotal}: peak memory above the "
+        f"index {m_peak} B ({m_peak / 2**30:.2f} GiB; the (Q, N) f32 matrix "
+        f"alone is {4 * N_QUERY * mat.ntotal} B); stage 1 and search (d, "
+        f"ids) equal to the streaming search bit for bit={m_same}; "
+        f"launches {m_launch}")
+    if not m_same or m_launch["adc_scan_batch"] <= 0 \
+            or m_launch["adc_scan_topl"] != 0:
+        raise AssertionError("the Scan(onehot) search differs from the "
+                             "streaming one or did not run adc_scan_batch")
+    del mat
+
+    # search_pq: one adc_scan per query over the OPQ path's codes
+    n_pq = min(100, N_QUERY)
+    st = Timer(torch)
+    pq_ids, pq_launch = counted(st, "search_pq", lambda: baselines.search_pq(
+        opq.model, queries_dev[:n_pq], opq.codes, k))
+    pq_recalls = {f"R@{r}": recall_at(pq_ids, gt_dev[:n_pq], r)
+                  for r in (1, 10, 100)}
+    same_q = {f"R@{r}": recall_at(oI[:n_pq], gt_dev[:n_pq], r)
+              for r in (1, 10, 100)}
+    plain_luts = opq.model.lut(queries_dev[:8])
+    plain_ids = torch.stack([
+        torch.sort(ref.adc_scan_ref(opq.codes, lt), stable=True)
+        .indices[:k] for lt in plain_luts]).to(torch.int32)
+    pq_same = torch.equal(pq_ids[:8], plain_ids)
+    log(f"  search_pq over {opq.ntotal} OPQ codes, {n_pq} queries, k={k}: "
+        f"{st.ms['search_pq']:.3f} ms; {pq_recalls} (the OPQ index's "
+        f"search on the same queries: {same_q}); ids of 8 queries equal "
+        f"to the plain scan + stable sort={pq_same}; launches {pq_launch}")
+    if pq_launch["adc_scan"] != n_pq or not pq_same:
+        raise AssertionError("search_pq did not run one adc_scan per query "
+                             "or differs from the plain version")
+
     # -- 6. kernel timings -----------------------------------------------------------------
     log("== 6. kernels at the main paths' shapes (CUDA events)")
     m_, k_, dc = cfg.num_codebooks, cfg.codebook_size, cfg.code_dim
@@ -593,6 +825,69 @@ def main() -> int:
     launches = {name: launches_add[name] + launches_search[name]
                 + sum(ph[name] for ph in o_launches.values())
                 for name in counters}
+    # the quantized faces at the OPQ path's shapes, pool of L=500 x2
+    pool = lut_quant.pool_width(L, 2, n)
+    qfaces = {}
+    for dtype, lut_bytes in (("float16", 2), ("int8", 1)):
+        qluts, scale = lut_quant.quantize_luts(o_luts, dtype)
+        ms = cuda_ms(torch, lambda: ops._scan_topl_run(
+            opq.codes, qluts, scale, bias0, None, topl=pool), reps=10)
+        plain = cuda_ms(torch, lambda: topl_scan.adc_scan_topl_stream(
+            opq.codes, qluts, bias0, None, scale, topl=pool, n_valid=n),
+            reps=2, warmup=1)
+        # one chain add per part; i8 tables also need one multiply by the
+        # scale per table entry (Q*M*K: the dequantized table does not
+        # depend on the row), each one f32 instruction at the add rate
+        n_ops = float(q) * n * m_ + (q * m_ * k_ if scale is not None else 0)
+        bound = bound_ms(n_ops, FP32_ADDS,
+                         n * m_ + 4.0 * n + lut_bytes * q * m_ * k_
+                         + (4.0 * q * m_ if scale is not None else 0.0)
+                         + 8.0 * q * pool)
+        qfaces[dtype] = (ms, plain, bound,
+                         sum(ph["adc_scan_topl"]
+                             for ph in quant_launches[dtype]))
+        # the same face at the f32 face's L, to part the table type's
+        # cost from the wider heap's
+        ms_l = cuda_ms(torch, lambda: ops._scan_topl_run(
+            opq.codes, qluts, scale, bias0, None, topl=L), reps=10)
+        log(f"  adc_scan_topl {dtype} at L={L} instead of the pool "
+            f"{pool}: {ms_l:.4f} ms")
+    ms_l = cuda_ms(torch, lambda: ops._scan_topl_run(
+        opq.codes, o_luts, None, bias0, None, topl=pool), reps=10)
+    log(f"  adc_scan_topl float32 at L={pool} (the pool): {ms_l:.4f} ms")
+    del qluts, scale
+    # the materialized scans at the materialized path's shapes
+    ocodes = opq.codes
+    as_ms = cuda_ms(torch, lambda: ops.adc_scan(ocodes, o_luts[0]), reps=50)
+    as_plain = cuda_ms(torch, lambda: ref.adc_scan_ref(ocodes, o_luts[0]),
+                       reps=20)
+    as_bound = bound_ms(float(n) * m_, FP32_ADDS,
+                        n * m_ + 4.0 * n + 4.0 * m_ * k_)
+    asb_ms = cuda_ms(torch, lambda: ops.adc_scan_batch(ocodes, o_luts),
+                     reps=10)
+    asb_plain = cuda_ms(torch, lambda: ref.adc_scan_batch_ref(ocodes, o_luts),
+                        reps=3, warmup=1)
+    asb_bound = bound_ms(float(q) * n * m_, FP32_ADDS,
+                         n * m_ + 4.0 * q * m_ * k_ + 4.0 * q * n)
+    # the library call: one embedding_bag in sum mode over the (N, M)
+    # flat indices code + m*K into the tables laid out (M*K, Q) (both
+    # made outside the timing); it writes (N, Q), the transpose
+    flat = (ocodes.long() + torch.arange(m_, device=dev) * k_).contiguous()
+    lut_col = o_luts[0].reshape(m_ * k_, 1)
+    lut_cols = o_luts.permute(1, 2, 0).reshape(m_ * k_, q).contiguous()
+    as_lib = cuda_ms(torch, lambda: F.embedding_bag(
+        flat, lut_col, mode="sum"), reps=50)
+    as_lib_same = torch.equal(
+        F.embedding_bag(flat, lut_col, mode="sum")[:, 0],
+        ops.adc_scan(ocodes, o_luts[0]))
+    asb_lib = cuda_ms(torch, lambda: F.embedding_bag(
+        flat, lut_cols, mode="sum"), reps=10)
+    asb_lib_same = torch.equal(F.embedding_bag(flat, lut_cols, mode="sum").T,
+                               ops.adc_scan_batch(ocodes, o_luts))
+    log(f"  library embedding_bag(mode='sum'): adc_scan {as_lib:.4f} ms, "
+        f"bit-identical={as_lib_same}; adc_scan_batch {asb_lib:.4f} ms, "
+        f"bit-identical (transposed)={asb_lib_same}")
+    del flat, lut_cols
     kernels = [
         {"name": "unq_encode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/unq_encode.cu",
@@ -603,7 +898,8 @@ def main() -> int:
         {"name": "adc_scan_topl", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/topl_scan.cu",
          "replaces": "src/repro/kernels/topl_scan.py:157",
-         "launches": launches["adc_scan_topl"], "max_abs_err": scan_err,
+         "launches": launches["adc_scan_topl"],
+         "max_abs_err": parity["float32"],
          "ms": scan_ms, "plain_ms": scan_plain, "bound_ms": scan_bound[0],
          "bound_by": scan_bound[1], "library_ms": None},
         {"name": "rerank_gather_dist", "route": "cuda",
@@ -614,9 +910,37 @@ def main() -> int:
          "plain_ms": rr_plain, "bound_ms": rr_bound[0],
          "bound_by": rr_bound[1], "library_ms": None},
     ]
+    for dtype, name in (("float16", "adc_scan_topl_f16"),
+                        ("int8", "adc_scan_topl_i8")):
+        ms, plain, bound, n_launch = qfaces[dtype]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/topl_scan.cu",
+             "replaces": "src/repro/kernels/topl_scan.py:157",
+             "launches": n_launch, "max_abs_err": parity[dtype], "ms": ms,
+             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": None})
+    kernels += [
+        {"name": "adc_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/adc_scan.cu",
+         "replaces": "src/repro/kernels/adc_scan.py:63",
+         "launches": pq_launch["adc_scan"], "max_abs_err": as_err,
+         "ms": as_ms, "plain_ms": as_plain, "bound_ms": as_bound[0],
+         "bound_by": as_bound[1], "library_ms": as_lib},
+        {"name": "adc_scan_batch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/adc_scan.cu",
+         "replaces": "src/repro/kernels/adc_scan.py:121",
+         "launches": m_launch["adc_scan_batch"], "max_abs_err": asb_err,
+         "ms": asb_ms, "plain_ms": asb_plain, "bound_ms": asb_bound[0],
+         "bound_by": asb_bound[1], "library_ms": asb_lib},
+    ]
     shapes = {"unq_encode": f"B={b} M={m_} K={k_} d_c={dc}",
               "adc_scan_topl": f"Q={q} N={n} M={m_} K={k_} L={L}",
-              "rerank_gather_dist": f"Q={q} L={L} M={m_} K={k_} D={d}"}
+              "rerank_gather_dist": f"Q={q} L={L} M={m_} K={k_} D={d}",
+              "adc_scan_topl_f16": f"Q={q} N={n} M={m_} K={k_} pool={pool}",
+              "adc_scan_topl_i8": f"Q={q} N={n} M={m_} K={k_} pool={pool}",
+              "adc_scan": f"N={n} M={m_} K={k_}",
+              "adc_scan_batch": f"Q={q} N={n} M={m_} K={k_}"}
     for kr in kernels:
         lib = "none" if kr["library_ms"] is None else \
             f"{kr['library_ms']:.4f}"

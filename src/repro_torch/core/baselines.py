@@ -13,14 +13,18 @@ explicit CPU ``torch.Generator``, so a device changes no draw; they are
 not ``jax.random``'s bits, so tests start both packages' Lloyd loops
 from the same centroids and compare whole trainings by recall.
 
-RVQ (``train_rvq``, ``RVQModel``) waits for ROADMAP A5b; the ``search_*``
-helpers and the learned rerank decoder have no caller in the port yet.
+``search_pq`` is the classic one-query-at-a-time ADC search over PQ
+codes (``ops.adc_scan``, the materialized scan kernel on the card).
+RVQ (``train_rvq``, ``RVQModel``, ``search_rvq``) waits for ROADMAP A5b,
+the learned rerank decoder for A5c.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 # ---------------------------------------------------------------------------
@@ -166,3 +170,22 @@ def train_opq(train: torch.Tensor, num_books: int, book_size: int = 256,
                      generator=generator)
     final.rotation = rot
     return final
+
+
+# ---------------------------------------------------------------------------
+# Search with shallow models (shares the ADC scan with the indexes)
+# ---------------------------------------------------------------------------
+
+def search_pq(model: PQModel, queries: torch.Tensor, codes: torch.Tensor,
+              topk: int) -> torch.Tensor:
+    """Exhaustive ADC search: for each of the (Q, D) queries, one
+    ``ops.adc_scan`` of its squared-L2 table over the (N, M) codes, then
+    its ``topk`` smallest scores in ``lax.top_k``'s tie order (a stable
+    sort: equal scores keep the lower index). Returns (Q, topk) int32
+    row ids."""
+    luts = model.lut(queries)                               # (Q, M, K)
+    out = []
+    for lut in luts:
+        scores = ops.adc_scan(codes, lut)
+        out.append(torch.sort(scores, stable=True).indices[:topk])
+    return torch.stack(out).to(torch.int32)

@@ -6,13 +6,15 @@ load`` surface.
 
     index = index_factory("UNQ8x256,Rerank500", dim=96)   # device="cuda"
     index = index_factory("OPQ8x256,Rerank500", dim=96)
+    index = index_factory("OPQ8x256,Rerank500,Scan(onehot)", dim=96)
 """
 from repro_torch.index.backend import (available_scan_backends,
                                        backend_capabilities,
                                        backend_supports,
                                        resolve_scan_backend)
 from repro_torch.index.base import Index
-from repro_torch.index.candidates import (CandidateGenerator, StreamingTopL,
+from repro_torch.index.candidates import (CandidateGenerator,
+                                          MaterializedTopL, StreamingTopL,
                                           candidate_generator_for,
                                           merge_topl)
 from repro_torch.index.factory import index_factory
@@ -22,7 +24,8 @@ from repro_torch.index.rerank import (DedupRerank, Reranker, TableRerank,
 from repro_torch.index.unq_index import UNQIndex
 
 __all__ = ["Index", "UNQIndex", "PQIndex", "OPQIndex", "index_factory",
-           "CandidateGenerator", "StreamingTopL", "candidate_generator_for",
+           "CandidateGenerator", "MaterializedTopL", "StreamingTopL",
+           "candidate_generator_for",
            "merge_topl", "Reranker", "TableRerank", "DedupRerank",
            "VmapRerank", "reranker_for",
            "available_scan_backends", "backend_capabilities",

@@ -14,7 +14,9 @@ rerank (d1, Eq. 7), is written once here. Stage 1 is a
 ``CandidateGenerator`` and stage 2 a ``Reranker``, both resolved through
 the backend registry. An index lives on one device (``device=``,
 default ``"cuda"``); its codes and model stay there and results come
-back there.
+back there. Its scan backend is the device's default, or the
+materialized ``"onehot"`` that ``Scan(onehot)`` in the factory string
+pins (``save``/``load`` keep it).
 
 Not ported yet: training UNQ (ROADMAP A4) and the ``use_d2=False``
 exhaustive-rerank ablation (ROADMAP A3).
@@ -30,12 +32,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.checkpoint.manager import load_pytree, save_pytree
-from repro_torch.index.backend import resolve_scan_backend
+from repro_torch.index.backend import backend_supports, resolve_scan_backend
 from repro_torch.index.candidates import candidate_generator_for
+from repro_torch.kernels import lut_quant
 from repro_torch.utils.device import resolve_device
 
 # kind -> Index subclass, populated by __init_subclass__
 _KINDS: dict[str, type["Index"]] = {}
+
+
+def loaded_backend(meta: dict) -> str:
+    """The backend a loaded index takes from its saved metadata: a saved
+    ``onehot`` stays pinned; any other name (the reference's ``xla`` or
+    ``pallas``, or "auto") gives way to the device's default."""
+    return "onehot" if meta.get("backend") == "onehot" else "auto"
 
 
 class Index(abc.ABC):
@@ -53,13 +63,13 @@ class Index(abc.ABC):
     #: then continues in 8192-row multiples)
     ENCODE_BUCKETS = (256, 1024, 4096, 8192)
 
-    def __init__(self, dim: int, *, rerank: int = 0,
+    def __init__(self, dim: int, *, rerank: int = 0, backend: str = "auto",
                  device: str | torch.device = "cuda"):
         self.dim = dim
         self.rerank = rerank          # L: stage-2 candidates (0 = ADC only)
         self.device = resolve_device(device)
-        # one backend per device type so far, so the device picks it
-        self.backend = resolve_scan_backend("auto", self.device)
+        # "auto" resolves by the device; "onehot" pins the materialized scan
+        self.backend = resolve_scan_backend(backend, self.device)
         self._codes: torch.Tensor | None = None      # (N, M) uint8
 
     # -- database state ----------------------------------------------------
@@ -168,6 +178,24 @@ class Index(abc.ABC):
                              f"({num_queries}, {self.ntotal})")
         return None, torch.where(mask, zero, inf)
 
+    def _check_quantized_request(self, lut_dtype: str, overfetch: int):
+        """Gate a ``lut_dtype``/``overfetch`` request on the backend's
+        ``quantized_lut`` capability (loud, not a silent f32 scan)."""
+        lut_quant.check_lut_dtype(lut_dtype)
+        if lut_dtype == "float32" and overfetch == 1:
+            return
+        if not backend_supports(self.backend, "quantized_lut"):
+            raise ValueError(
+                f"backend {self.backend!r} does not declare the "
+                f"'quantized_lut' capability; lut_dtype={lut_dtype!r} / "
+                f"overfetch={overfetch} need a streaming backend")
+
+    def _saved_backend(self) -> str:
+        """The backend name ``save`` records: a pinned ``onehot`` (which
+        both packages have), else "auto", so each package picks its own
+        by its device (``loaded_backend`` reads it back)."""
+        return "onehot" if self.backend == "onehot" else "auto"
+
     def search(self, queries, k: int, *, use_rerank: bool | None = None,
                use_d2: bool = True, filter_mask=None,
                lut_dtype: str = "float32", overfetch: int = 1):
@@ -179,11 +207,19 @@ class Index(abc.ABC):
         ((ntotal,) or (Q, ntotal) bool, True = eligible) lowers to a
         +inf bias stream through stage 1, so a filtered point never
         enters the pool; when fewer than k points survive, the tail is
-        (distance=+inf, index=-1). ``lut_dtype``/``overfetch`` other
-        than the exact f32 default raise (ROADMAP A6).
+        (distance=+inf, index=-1).
+
+        ``lut_dtype`` in {'float16', 'int8'} (with ``overfetch`` >= 1)
+        opts stage 1 into the reduced-precision path: the scan selects
+        ``overfetch * L`` candidates under quantized tables and the pool
+        is re-scored with the exact f32 chain before the final top-L
+        (``repro_torch.kernels.lut_quant``). Only backends with the
+        ``quantized_lut`` capability accept it (``onehot`` raises
+        ValueError); the default is the bit-exact f32 path, unchanged.
         """
         if self.ntotal == 0:
             raise RuntimeError("search on an empty index (call add first)")
+        self._check_quantized_request(lut_dtype, overfetch)
         if not use_d2:
             raise NotImplementedError(
                 "use_d2=False (exhaustive rerank over the database) is not "
@@ -198,7 +234,7 @@ class Index(abc.ABC):
                 "set index.rerank or pass use_rerank=False")
         topl = min(self.rerank if use_rerank else k, self.ntotal)
         luts = self._build_luts(queries)
-        gen = candidate_generator_for(self.device)
+        gen = candidate_generator_for(self.device, self.backend)
         bias, qbias = self._lower_filter(filter_mask, queries.shape[0])
         d2, cand = gen.topl(self._codes, luts, bias, topl=topl, qbias=qbias,
                             lut_dtype=lut_dtype, overfetch=overfetch)
@@ -267,8 +303,9 @@ class Index(abc.ABC):
     @staticmethod
     def load(path, *, device: str | torch.device = "cuda") -> "Index":
         """Load any saved index, the reference's included, onto
-        ``device``, dispatching on the manifest's kind tag. The saved
-        backend name is ignored: ``device`` picks the backend."""
+        ``device``, dispatching on the manifest's kind tag. A saved
+        ``onehot`` backend is kept; any other saved name gives way to
+        ``device``'s default backend."""
         path = pathlib.Path(path)
         with open(path / "manifest.json") as f:
             manifest = json.load(f)

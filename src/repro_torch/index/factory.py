@@ -12,6 +12,9 @@ The port's grammar so far covers the flat indexes:
   Rerank{L}      stage-2 exact-reconstruction budget (d1); UNQ keeps its
                  paper default L=500 without it, PQ and OPQ are ADC-only
                  (L=0) without it
+  Scan(onehot)   pin the materialized stage 1 (the full (Q, N) score
+                 matrix from ``adc_scan_batch``); ``Scan(auto)`` keeps
+                 the device's default backend
 
 Every other component of the reference's grammar raises, naming the
 ROADMAP slice that brings it.
@@ -26,14 +29,16 @@ from repro_torch.index.unq_index import UNQIndex
 
 _QUANT_RE = re.compile(r"^(UNQ|PQ|OPQ)(\d+)(?:x(\d+))?$")
 _RERANK_RE = re.compile(r"^Rerank(\d+)$")
+_SCAN_RE = re.compile(r"^Scan\((onehot|auto)\)$")
 
 #: reference components not ported yet -> (pattern, the slice bringing it)
 _NOT_PORTED = (
     (re.compile(r"^RVQ\d+(?:x\d+)?$"), "RVQ (ROADMAP A5b)"),
     (re.compile(r"^(IVF\d+|NProbe\d+|Residual)$"), "IVF (ROADMAP A7)"),
-    (re.compile(r"^Scan\(\w+\)$"),
-     "pinning a scan backend by name (the port's backend follows "
-     "device=; the tuner's backends come with ROADMAP A10)"),
+    (re.compile(r"^Scan\((?!onehot\)|auto\))\w+\)$"),
+     "pinning a scan backend other than onehot by name (the port's "
+     "streaming backend follows device=; the tuner's backends come with "
+     "ROADMAP A10)"),
 )
 
 
@@ -41,6 +46,7 @@ def index_factory(spec: str, dim: int, *, device="cuda") -> Index:
     """Build an untrained Index on ``device`` from a factory string."""
     quant = None
     rerank = None
+    scan = "auto"
     for comp in spec.split(","):
         comp = comp.strip()
         if not comp:
@@ -60,12 +66,16 @@ def index_factory(spec: str, dim: int, *, device="cuda") -> Index:
         if m:
             rerank = int(m.group(1))
             continue
+        m = _SCAN_RE.match(comp)
+        if m:
+            scan = m.group(1)
+            continue
         raise ValueError(f"cannot parse component {comp!r} of factory string "
                          f"{spec!r} (expected UNQ8x256 / PQ8 / OPQ8x256 / "
-                         "Rerank500)")
+                         "Rerank500 / Scan(onehot))")
     if quant is None:
         raise ValueError(f"no quantizer component in factory string {spec!r}")
-    kw = {"device": device}
+    kw = {"backend": scan, "device": device}
     if rerank is not None:
         kw["rerank"] = rerank
     kind, books, size = quant

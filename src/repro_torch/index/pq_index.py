@@ -26,8 +26,9 @@ class PQIndex(base.Index):
     kind = "pq"
 
     def __init__(self, dim: int, *, num_books: int = 8,
-                 book_size: int = 256, rerank: int = 0, device="cuda"):
-        super().__init__(dim, rerank=rerank, device=device)
+                 book_size: int = 256, rerank: int = 0,
+                 backend: str = "auto", device="cuda"):
+        super().__init__(dim, rerank=rerank, backend=backend, device=device)
         if dim % num_books:
             raise ValueError(f"dim={dim} is not a multiple of "
                              f"num_books={num_books}")
@@ -83,17 +84,16 @@ class PQIndex(base.Index):
         return tree
 
     def _metadata(self) -> dict:
-        # "auto": the reference then picks its backend by its own device
         return {"dim": self.dim, "num_books": self.num_books,
                 "book_size": self.book_size, "rerank": self.rerank,
-                "backend": "auto", "ntotal": self.ntotal,
+                "backend": self._saved_backend(), "ntotal": self.ntotal,
                 "has_rotation": self.model.rotation is not None}
 
     @classmethod
     def _empty_from_metadata(cls, meta: dict, device) -> "PQIndex":
         index = cls(meta["dim"], num_books=meta["num_books"],
                     book_size=meta["book_size"], rerank=meta["rerank"],
-                    device=device)
+                    backend=base.loaded_backend(meta), device=device)
         d_sub = meta["dim"] // meta["num_books"]
         rot = torch.eye(meta["dim"]) if meta["has_rotation"] else None
         # placeholders of the saved structure: ``load`` reads the names

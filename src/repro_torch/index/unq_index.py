@@ -41,8 +41,9 @@ class UNQIndex(base.Index):
 
     def __init__(self, dim: int, *, num_codebooks: int = 8,
                  codebook_size: int = 256, rerank: int = 500,
-                 cfg: unq.UNQConfig | None = None, device="cuda"):
-        super().__init__(dim, rerank=rerank, device=device)
+                 cfg: unq.UNQConfig | None = None, backend: str = "auto",
+                 device="cuda"):
+        super().__init__(dim, rerank=rerank, backend=backend, device=device)
         self.cfg = cfg if cfg is not None else unq.UNQConfig(
             dim=dim, num_codebooks=num_codebooks,
             codebook_size=codebook_size)
@@ -94,14 +95,14 @@ class UNQIndex(base.Index):
         return {"params": params, "state": state, "codes": codes}
 
     def _metadata(self) -> dict:
-        # "auto": the reference then picks its backend by its own device
         return {"cfg": dataclasses.asdict(self.cfg), "rerank": self.rerank,
-                "backend": "auto", "ntotal": self.ntotal}
+                "backend": self._saved_backend(), "ntotal": self.ntotal}
 
     @classmethod
     def _empty_from_metadata(cls, meta: dict, device) -> "UNQIndex":
         cfg = unq.UNQConfig(**meta["cfg"])   # the reference's fields too
-        index = cls(cfg.dim, rerank=meta["rerank"], cfg=cfg, device=device)
+        index = cls(cfg.dim, rerank=meta["rerank"], cfg=cfg,
+                    backend=base.loaded_backend(meta), device=device)
         # a placeholder of the saved shapes (PyTorch's default parameters,
         # not ``unq.init``): ``load`` reads only its leaf names
         index.model = unq.UNQ(cfg)

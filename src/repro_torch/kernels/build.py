@@ -26,9 +26,26 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("unq_encode", "topl_scan", "rerank_dist")
+SOURCES = ("unq_encode", "topl_scan", "rerank_dist", "adc_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: dynamic shared memory a block may use on Hopper
+MAX_SMEM_BYTES = 232_448
+#: queries per block the table-holding kernels are built for, largest first
+BLOCK_QS = (8, 4, 2, 1)
+
+
+def largest_block_q(smem_of, what: str) -> int:
+    """The largest of ``BLOCK_QS`` whose block shared memory
+    ``smem_of(bq)`` fits in ``MAX_SMEM_BYTES``. Raises ValueError, naming
+    the bytes ``what`` needs at one query per block, when none fits."""
+    for bq in BLOCK_QS:
+        if smem_of(bq) <= MAX_SMEM_BYTES:
+            return bq
+    raise ValueError(
+        f"{what} needs {smem_of(1)} B of shared memory per block even at "
+        f"one query per block, above the {MAX_SMEM_BYTES} B a Hopper "
+        "block can use")
 
 
 @dataclasses.dataclass

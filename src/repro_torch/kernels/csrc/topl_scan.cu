@@ -1,38 +1,50 @@
 // Streaming ADC scan with a running per-query top-L, for NVIDIA Hopper
 // (sm_90a): stage 1 of the two-stage search.
 //
-//   score[q, n] = ((lut[q,0,code[n,0]] + lut[q,1,code[n,1]]) + ...)
+//   score[q, n] = ((part(q,0,code[n,0]) + part(q,1,code[n,1])) + ...)
 //                 + bias[n] (+ qbias[q, n])
 //
-// codes (N, M) u8, luts (Q, M, K) f32, bias (N,) f32, optional qbias
-// (Q, N) f32 -> the L smallest (score, n) pairs of each query as
-// (Q, L) f32 + (Q, L) int32, sorted by (score asc, n asc): bit-identical
-// to a stable sort of the full (Q, N) score matrix, which is never built.
+//   part(q, m, c) = lut[q,m,c]                  f32 tables
+//                 = f32(lut[q,m,c])             f16 tables
+//                 = f32(lut[q,m,c]) * scale[q,m]   i8 tables, (Q, M) scale
+//
+// codes (N, M) u8, luts (Q, M, K), bias (N,) f32, optional qbias (Q, N)
+// f32 -> the L smallest (score, n) pairs of each query as (Q, L) f32 +
+// (Q, L) int32, sorted by (score asc, n asc): bit-identical to a stable
+// sort of the full (Q, N) score matrix, which is never built. Each part
+// is converted (and scaled) before it joins the chain, as in
+// ref.adc_scan_batch_q_ref.
 //
 // Replaces: src/repro/kernels/topl_scan.py::adc_scan_topl_pallas
-// (pl.pallas_call at :157, body _adc_scan_topl_kernel at :47, in-kernel
-// fold src/repro/kernels/merge.py::merge_block_topl at :122).
+// (pl.pallas_call at :157, body _adc_scan_topl_kernel at :47, its f16 and
+// i8 faces at :66-80, in-kernel fold
+// src/repro/kernels/merge.py::merge_block_topl at :122).
 //
 // What bounds it on this card: operations. The work is Q * N * M table
 // reads and f32 adds against N * M + 4 N bytes of database that every
 // query tile re-reads from L2; the byte term is ~100x below the add term
 // at Q = 1000. In this kernel the real cost is the Q * N * M
 // shared-memory gathers of LUT entries (random codes give bank conflicts)
-// plus the top-L bookkeeping.
+// plus the top-L bookkeeping. f16 and i8 tables halve and quarter the
+// LUT bytes a block holds, so more blocks fit on an SM.
 //
 // Design. The TPU kernel runs its N axis in order and carries the
 // (block_q, L) heap from one grid step to the next in a resident output
 // block. CUDA blocks run in parallel and carry nothing, so the scan is
 // split in two launches of this source:
 //
-//   1. topl_scan_kernel: grid (Q / BQ, S). A block takes BQ = 8 queries
-//      and one of S slices of N. It keeps the 8 LUTs in shared memory
-//      (8 * M * K * 4 B = 64 KB at M = 8, K = 256, above the 48 KB
-//      static limit, so the launcher raises the dynamic limit), and per
-//      query a sorted heap of LP = next_pow2(L) pairs plus a candidate
-//      buffer of CAP pairs. Each of the 256 threads scores one row per
-//      tile for all 8 queries, with the chain in __fadd_rn (no
-//      reassociation, no contraction), so scores equal the oracle's bit
+//   1. topl_scan_kernel<T, BQ>: grid (Q / BQ, S). A block takes BQ
+//      queries (8, 4, 2 or 1; warp w owns query w) and one of S slices of
+//      N. It keeps the BQ tables in shared memory (at BQ = 8, M = 8,
+//      K = 256: 64 KB in f32, 32 KB in f16, 16 KB in i8, above the 48 KB
+//      static limit for f32, so the launcher raises the dynamic limit),
+//      and per query a sorted heap of LP = next_pow2(L) pairs plus a
+//      candidate buffer of CAP pairs. The caller picks the largest BQ
+//      whose shared memory fits (topl_scan.py::block_q); that is what
+//      lets L reach ~16K at M = 8 and M reach 32 at K = 256. Each of the
+//      32 * BQ threads scores one row per tile for all BQ queries, with
+//      the chain in __fadd_rn (and the i8 scale in __fmul_rn): no
+//      reassociation, no contraction, so scores equal the oracle's bit
 //      for bit. A candidate that is not lexicographically below the
 //      query's current L-th pair cannot enter its top L and is dropped;
 //      the rest are appended to the buffer (one shared atomic per warp
@@ -42,7 +54,8 @@
 //      holding the LP smallest pairs, and log2(LP) half-cleaner stages
 //      sort it. The slice's first L pairs go to (Q, S, L) partials.
 //   2. topl_merge_kernel: one block per query folds its S partial lists
-//      into one heap with the same merge and writes the (Q, L) result.
+//      into one heap of LP pairs (8 * LP bytes of shared memory, any LP
+//      the scan takes) and writes the (Q, L) result.
 //
 // All compares are the total order (score asc, gid asc) on floats, so
 // -0.0 == +0.0 ties break by gid, as the reference's _lex_le does. Pad
@@ -53,17 +66,30 @@
 
 #include <cstdint>
 #include <climits>
+#include <type_traits>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int BQ = 8;              // queries per block; warp w owns query w
-constexpr int THREADS = 32 * BQ;   // one row per thread per tile
-constexpr int TILE = THREADS;      // rows per tile
-constexpr int CAP = 2 * TILE;      // candidate buffer per query (pow2)
 constexpr int MERGE_THREADS = 256;
 constexpr int IMAX = INT_MAX;
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) & ~size_t(15);
+}
+
+// Shared memory of one scan block: the BQ tables (and, for i8, their
+// (BQ, M) scales), each region 16-byte aligned, then the heaps, the
+// candidate buffers and their counts. topl_scan.py::smem_bytes mirrors it.
+__host__ __device__ constexpr size_t scan_smem_bytes(int bq, int M, int K,
+                                                     int LP, int lut_bytes) {
+  return align16((size_t)lut_bytes * bq * M * K) +
+         (lut_bytes == 1 ? align16(sizeof(float) * (size_t)bq * M) : 0) +
+         (sizeof(float) + sizeof(int)) * (size_t)bq * (LP + 64 * bq) +
+         sizeof(int) * (size_t)bq;
+}
 
 __device__ __forceinline__ bool lex_less(float s1, int g1, float s2, int g2) {
   return s1 < s2 || (s1 == s2 && g1 < g2);
@@ -117,7 +143,9 @@ __device__ void warp_merge(float* hs, int* hg, const float* bs, const int* bg,
   }
 }
 
-// Sort query q's candidate buffer and fold it into q's heap (one warp).
+// Sort query q's candidate buffer (CAP pairs per query) and fold it into
+// q's heap (one warp).
+template <int CAP>
 __device__ void flush(float* heap_s, int* heap_g, float* buf_s, int* buf_g,
                       int* cnt, int q, int LP, int lane) {
   float* bs = buf_s + q * CAP;
@@ -136,20 +164,41 @@ __device__ void flush(float* heap_s, int* heap_g, float* buf_s, int* buf_g,
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(THREADS)
-topl_scan_kernel(const uint8_t* __restrict__ codes,
-                 const float* __restrict__ luts,
+// One table entry as the f32 part that joins the chain.
+template <typename T>
+__device__ __forceinline__ float lut_part(const T* lut_s, const float* scale_s,
+                                          int qm, int K, int code) {
+  if constexpr (std::is_same_v<T, float>) {
+    return lut_s[qm * K + code];
+  } else if constexpr (std::is_same_v<T, __half>) {
+    return __half2float(lut_s[qm * K + code]);
+  } else {
+    return __fmul_rn((float)lut_s[qm * K + code], scale_s[qm]);
+  }
+}
+
+template <typename T, int BQ>
+__global__ void __launch_bounds__(32 * BQ)
+topl_scan_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ luts,
+                 const float* __restrict__ scale,
                  const float* __restrict__ bias,
                  const float* __restrict__ qbias, long long ldq,
                  float* __restrict__ part_s, int* __restrict__ part_g,
                  int N, int Q, int M, int K, int L, int LP, int slice) {
+  constexpr int THREADS = 32 * BQ;   // one row per thread per tile
+  constexpr int TILE = THREADS;      // rows per tile
+  constexpr int CAP = 2 * TILE;      // candidate buffer per query (pow2)
+  constexpr bool SCALED = std::is_same_v<T, int8_t>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* lut_s = reinterpret_cast<float*>(smem);        // BQ * M * K
-  float* heap_s = lut_s + BQ * M * K;                   // BQ * LP
+  T* lut_s = reinterpret_cast<T*>(smem);                  // BQ * M * K
+  unsigned char* p = smem + align16(sizeof(T) * BQ * M * K);
+  float* scale_s = reinterpret_cast<float*>(p);           // BQ * M (i8)
+  if constexpr (SCALED) p += align16(sizeof(float) * BQ * M);
+  float* heap_s = reinterpret_cast<float*>(p);            // BQ * LP
   int* heap_g = reinterpret_cast<int*>(heap_s + BQ * LP);
   float* buf_s = reinterpret_cast<float*>(heap_g + BQ * LP);  // BQ * CAP
   int* buf_g = reinterpret_cast<int*>(buf_s + BQ * CAP);
-  int* cnt = buf_g + BQ * CAP;                          // BQ
+  int* cnt = buf_g + BQ * CAP;                            // BQ
 
   const int q0 = blockIdx.x * BQ;
   const int S = gridDim.y;
@@ -159,8 +208,12 @@ topl_scan_kernel(const uint8_t* __restrict__ codes,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const float* lsrc = luts + (size_t)q0 * M * K;
+  const T* lsrc = luts + (size_t)q0 * M * K;
   for (int i = tid; i < BQ * M * K; i += THREADS) lut_s[i] = lsrc[i];
+  if constexpr (SCALED) {
+    for (int i = tid; i < BQ * M; i += THREADS)
+      scale_s[i] = scale[(size_t)q0 * M + i];
+  }
   for (int i = tid; i < BQ * LP; i += THREADS) {
     heap_s[i] = CUDART_INF_F;
     heap_g[i] = IMAX;
@@ -178,12 +231,14 @@ topl_scan_kernel(const uint8_t* __restrict__ codes,
       const uint8_t* c = codes + row * M;
       int code = c[0];
 #pragma unroll
-      for (int q = 0; q < BQ; ++q) acc[q] = lut_s[(q * M) * K + code];
+      for (int q = 0; q < BQ; ++q)
+        acc[q] = lut_part(lut_s, scale_s, q * M, K, code);
       for (int m = 1; m < M; ++m) {
         code = c[m];
 #pragma unroll
         for (int q = 0; q < BQ; ++q)
-          acc[q] = __fadd_rn(acc[q], lut_s[(q * M + m) * K + code]);
+          acc[q] = __fadd_rn(acc[q], lut_part(lut_s, scale_s, q * M + m, K,
+                                              code));
       }
       const float b = bias[row];
 #pragma unroll
@@ -215,10 +270,11 @@ topl_scan_kernel(const uint8_t* __restrict__ codes,
     }
     __syncthreads();
     if (cnt[warp] > CAP - TILE)
-      flush(heap_s, heap_g, buf_s, buf_g, cnt, warp, LP, lane);
+      flush<CAP>(heap_s, heap_g, buf_s, buf_g, cnt, warp, LP, lane);
     __syncthreads();
   }
-  if (cnt[warp] > 0) flush(heap_s, heap_g, buf_s, buf_g, cnt, warp, LP, lane);
+  if (cnt[warp] > 0)
+    flush<CAP>(heap_s, heap_g, buf_s, buf_g, cnt, warp, LP, lane);
   __syncwarp();
 
   const size_t off = ((size_t)(q0 + warp) * S + blockIdx.y) * L;
@@ -271,35 +327,98 @@ topl_merge_kernel(const float* __restrict__ part_s,
   }
 }
 
-}  // namespace
-
-extern "C" size_t adc_scan_topl_smem_bytes(int M, int K, int LP) {
-  return sizeof(float) * (size_t)BQ * M * K +
-         (sizeof(float) + sizeof(int)) * (size_t)BQ * (LP + CAP) +
-         sizeof(int) * BQ;
+template <typename T, int BQ>
+cudaError_t launch_scan(const uint8_t* codes, const void* luts,
+                        const float* scale, const float* bias,
+                        const float* qbias, long long ldq, float* part_s,
+                        int* part_g, int N, int Q, int Qpad, int M, int K,
+                        int L, int LP, int S, cudaStream_t st) {
+  constexpr int TILE = 32 * BQ;
+  const int slice = ((N + S - 1) / S + TILE - 1) / TILE * TILE;
+  const size_t smem = scan_smem_bytes(BQ, M, K, LP, (int)sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      topl_scan_kernel<T, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  topl_scan_kernel<T, BQ><<<dim3(Qpad / BQ, S), 32 * BQ, smem, st>>>(
+      codes, static_cast<const T*>(luts), scale, bias, qbias, ldq, part_s,
+      part_g, N, Q, M, K, L, LP, slice);
+  return cudaGetLastError();
 }
 
-// codes (N, M), luts (Qpad, M, K) with Qpad % 8 == 0, bias (N,), qbias
-// NULL or rows of stride ldq for the first Q queries; partials
-// (Qpad, S, L) scratch; out (Q, L). L <= LP, LP a power of two >= 32.
-extern "C" int adc_scan_topl_launch(const uint8_t* codes, const float* luts,
-                                    const float* bias, const float* qbias,
-                                    long long ldq, float* part_s, int* part_g,
-                                    float* out_s, int* out_g, int N, int Q,
-                                    int Qpad, int M, int K, int L, int LP,
-                                    int S, void* stream) {
+template <typename T>
+cudaError_t launch_scan_bq(int bq, const uint8_t* codes, const void* luts,
+                           const float* scale, const float* bias,
+                           const float* qbias, long long ldq, float* part_s,
+                           int* part_g, int N, int Q, int Qpad, int M, int K,
+                           int L, int LP, int S, cudaStream_t st) {
+  switch (bq) {
+    case 8: return launch_scan<T, 8>(codes, luts, scale, bias, qbias, ldq,
+                                     part_s, part_g, N, Q, Qpad, M, K, L, LP,
+                                     S, st);
+    case 4: return launch_scan<T, 4>(codes, luts, scale, bias, qbias, ldq,
+                                     part_s, part_g, N, Q, Qpad, M, K, L, LP,
+                                     S, st);
+    case 2: return launch_scan<T, 2>(codes, luts, scale, bias, qbias, ldq,
+                                     part_s, part_g, N, Q, Qpad, M, K, L, LP,
+                                     S, st);
+    case 1: return launch_scan<T, 1>(codes, luts, scale, bias, qbias, ldq,
+                                     part_s, part_g, N, Q, Qpad, M, K, L, LP,
+                                     S, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// lut_bytes: 4 (f32 tables), 2 (f16) or 1 (i8, with a scale).
+extern "C" size_t adc_scan_topl_smem_bytes(int bq, int M, int K, int LP,
+                                           int lut_bytes) {
+  return scan_smem_bytes(bq, M, K, LP, lut_bytes);
+}
+
+// codes (N, M); luts (Qpad, M, K) of lut_bytes-wide entries (4: f32,
+// 2: f16, 1: i8) with Qpad % bq == 0, bq in {8, 4, 2, 1}; scale (Qpad, M)
+// for i8 tables, else NULL; bias (N,); qbias NULL or rows of stride ldq
+// for the first Q queries; partials (Qpad, S, L) scratch; out (Q, L).
+// L <= LP, LP a power of two >= 32.
+extern "C" int adc_scan_topl_launch(const uint8_t* codes, const void* luts,
+                                    const float* scale, int lut_bytes,
+                                    int bq, const float* bias,
+                                    const float* qbias, long long ldq,
+                                    float* part_s, int* part_g, float* out_s,
+                                    int* out_g, int N, int Q, int Qpad, int M,
+                                    int K, int L, int LP, int S,
+                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int slice = ((N + S - 1) / S + TILE - 1) / TILE * TILE;
-  const size_t smem = adc_scan_topl_smem_bytes(M, K, LP);
-  cudaError_t err = cudaFuncSetAttribute(
-      topl_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err;
+  switch (lut_bytes) {
+    case 4:
+      err = launch_scan_bq<float>(bq, codes, luts, scale, bias, qbias, ldq,
+                                  part_s, part_g, N, Q, Qpad, M, K, L, LP, S,
+                                  st);
+      break;
+    case 2:
+      err = launch_scan_bq<__half>(bq, codes, luts, scale, bias, qbias, ldq,
+                                   part_s, part_g, N, Q, Qpad, M, K, L, LP, S,
+                                   st);
+      break;
+    case 1:
+      err = launch_scan_bq<int8_t>(bq, codes, luts, scale, bias, qbias, ldq,
+                                   part_s, part_g, N, Q, Qpad, M, K, L, LP, S,
+                                   st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
-  topl_scan_kernel<<<dim3(Qpad / BQ, S), THREADS, smem, st>>>(
-      codes, luts, bias, qbias, ldq, part_s, part_g, N, Q, M, K, L, LP, slice);
-  err = cudaGetLastError();
+  const size_t msmem = 2 * sizeof(float) * (size_t)LP;
+  err = cudaFuncSetAttribute(topl_merge_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)msmem);
   if (err != cudaSuccess) return (int)err;
-  topl_merge_kernel<<<Q, MERGE_THREADS, 2 * sizeof(float) * LP, st>>>(
-      part_s, part_g, out_s, out_g, S, L, LP);
+  topl_merge_kernel<<<Q, MERGE_THREADS, msmem, st>>>(part_s, part_g, out_s,
+                                                     out_g, S, L, LP);
   return (int)cudaGetLastError();
 }
 

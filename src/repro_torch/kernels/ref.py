@@ -53,6 +53,41 @@ def adc_scan_topl_ref(codes: torch.Tensor, luts: torch.Tensor,
     return s[:, :keep], idx[:, :keep].to(torch.int32)
 
 
+def adc_scan_batch_q_ref(codes: torch.Tensor, qluts: torch.Tensor,
+                         scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Quantized-LUT multi-query scan: codes (N, M), qluts (Q, M, K) f16
+    (scale None) or i8 with scale (Q, M) f32 -> (Q, N) f32 with
+    ``scores[q, n] = part_0 + part_1 + ...`` left to right, each part
+    ``f32(qlut[q, m, code])`` (times ``scale[q, m]`` for i8), converted
+    and scaled before it joins the chain, as the kernels do."""
+    c = codes.long()
+    acc = None
+    for m in range(qluts.shape[1]):
+        part = qluts[:, m, :].index_select(1, c[:, m]).float()
+        if scale is not None:
+            part = part * scale[:, m:m + 1]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def adc_scan_topl_q_ref(codes: torch.Tensor, qluts: torch.Tensor,
+                        scale: torch.Tensor | None,
+                        bias: torch.Tensor | None, topl: int,
+                        qbias: torch.Tensor | None = None):
+    """Materialized oracle of the quantized pool scan: the (Q, N) matrix
+    of ``adc_scan_batch_q_ref``, the same f32 ``+ bias`` and ``+ qbias``
+    as the exact path, then a stable ascending sort. Returns ((Q, L) f32,
+    (Q, L) int32), L = min(topl, N)."""
+    scores = adc_scan_batch_q_ref(codes, qluts, scale)
+    if bias is not None:
+        scores = scores + bias[None, :]
+    if qbias is not None:
+        scores = scores + qbias
+    keep = min(topl, codes.shape[0])
+    s, idx = torch.sort(scores, dim=1, stable=True)
+    return s[:, :keep], idx[:, :keep].to(torch.int32)
+
+
 def unq_encode_ref(heads: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Codeword assignment (paper Eq. 4): heads (B, M, d_c), codebooks
     (M, K, d_c) -> codes (B, M) int32, argmax_k <heads[b, m], c[m, k]>

@@ -260,9 +260,13 @@ def test_factory_rejects_what_is_not_ported(spec, err, match):
 def test_backend_registry():
     assert resolve_scan_backend("auto", "cpu") == "torch"
     assert resolve_scan_backend("torch", "cpu") == "torch"
-    assert backend_capabilities("cuda") == {"streaming_topl", "fused_topl"}
+    assert backend_capabilities("cuda") == {"streaming_topl", "fused_topl",
+                                            "quantized_lut"}
     assert backend_supports("torch", "streaming_topl")
+    assert backend_supports("torch", "quantized_lut")
     assert not backend_supports("torch", "fused_topl")
+    assert resolve_scan_backend("onehot", "cpu") == "onehot"
+    assert backend_capabilities("onehot") == frozenset()
     with pytest.raises(ValueError, match="runs on cuda"):
         resolve_scan_backend("cuda", "cpu")
     with pytest.raises(ValueError, match="unknown scan backend"):
@@ -276,8 +280,6 @@ def test_unported_paths_raise_naming_roadmap(setup):
         index.search(ds.queries, 5, use_d2=False)
     with pytest.raises(NotImplementedError, match="A4"):
         index.train(ds.base)
-    with pytest.raises(NotImplementedError, match="A6"):
-        index.search(ds.queries, 5, lut_dtype="float16")
     gen = candidate_generator_for("cpu")
     for face in (gen.gather_topl, gen.dispatch_topl):
         with pytest.raises(NotImplementedError, match="A7"):

@@ -123,10 +123,14 @@ def test_adc_scan_refs_bitwise_vs_jax(seed):
 
 
 def test_quantized_luts_raise_naming_roadmap():
+    # the quantized stage 1 is ported (ROADMAP A6 is closed); what it
+    # still refuses raises as the reference does
     _, codes, luts = _scan_case(0, 10, 2, 4, 1, tie_heavy=False)
-    for kw in ({"lut_dtype": "int8"}, {"overfetch": 2}):
-        with pytest.raises(NotImplementedError, match="A6"):
-            ops.adc_scan_topl(_t(codes), _t(luts), topl=3, **kw)
+    with pytest.raises(ValueError, match="unknown lut_dtype"):
+        ops.adc_scan_topl(_t(codes), _t(luts), topl=3, lut_dtype="bfloat16")
+    with pytest.raises(ValueError, match="overfetch must be >= 1"):
+        ops.adc_scan_topl(_t(codes), _t(luts), topl=3, lut_dtype="int8",
+                          overfetch=0)
 
 
 # -- the exact lexicographic merge -------------------------------------------
